@@ -6,30 +6,38 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
     python3 chip_smoke.py [--seed 0]
 
 Phase 1 builds the CUDA kernels from ``pytorch3d_pointops_tpu_torch/csrc``
-into ``build/`` and prints the card's name and power limit. Phase 2 holds
-every kernel against its plain PyTorch twin on the card: ragged lengths,
-fully masked clouds, norms 1 and 2, D in {3, 16}, K in {1, 8, 16, 64, 100},
-duplicate points on a 1/8 grid so that ties are real, and the scatter run
-twice and compared bit for bit. Phase 3 drives the main path at full size
-through the public entry points, with every launch counter set to 0 just
-before and read just after:
+(five sources, one ``nvcc`` each, in parallel) into ``build/`` and prints
+the card's name and power limit. Phase 2 holds every kernel against its
+plain PyTorch twin on the card: ragged lengths, fully masked clouds, norms
+1 and 2, D in {3, 16}, K in {1, 8, 16, 64, 100} (KNN) and {1, 32, 100, 500}
+(ball query), points on a 1/8 grid so that ties and ball boundaries are
+real, every FPS entry point with per-cloud K (K past the length and past the
+number of distinct points), explicit starts and an empty cloud, and the
+scatter run twice and compared bit for bit. Phase 3 drives two main paths at
+full size through the public entry points, each with every launch counter
+set to 0 just before and read just after:
 
 * config 3: ``chamfer_distance`` on two ``Pointclouds`` of 16 x 10,000
   points (ragged 9,000-10,000) with normals and colors, mean/mean, five SGD
-  steps of forward and backward;
-* config 1: ``knn_points`` on 2 clouds of 1000/800 points, K=8, forward and
-  backward;
-* north star: ``knn_points`` on 100k x 100k points, K=16, forward and
-  backward.
+  steps of forward and backward; config 1: ``knn_points`` on 2 clouds of
+  1000/800 points, K=8; north star: ``knn_points`` on 100k x 100k points,
+  K=16; both forward and backward;
+* config 2 (PointNet++ grouping): ``sample_farthest_points`` (K=512) then
+  ``ball_query`` (K=32, r=0.2) on 32 clouds of up to 4,096 points (ragged
+  3,500-4,096, uniform in the unit ball), and a loss on the grouped local
+  coordinates and distances backward into the points, five steps; then
+  ``sample_farthest_points`` on one cloud of 1,000,000 points (K=1024) and
+  one of 4,000,000 points (K=512), which route to the two grid FPS kernels.
 
-It then checks the main path against the plain path on the card (config 3
-loss and feature losses within rel 1e-5, gradients within 1e-5 of their
-largest entry; the north-star KNN on a 4,096-query subset), two backward
-runs for bit-equality, and times every kernel at the main path's shapes
-beside its plain twin, its bound and, for the scatter, ``index_add_``. Each
-timed launch is also held against its plain twin at that shape (indices
-equal, values within 1e-5) and the scatters run twice for bit-equality. The line before the last is one JSON object
-with a record per kernel; the last line is
+It then checks each path against the plain path on the card (config 3 and
+config 2 losses within rel 1e-5, gradients within 1e-5 of their largest
+entry, FPS and ball indices equal; the north-star KNN on a 4,096-query
+subset; the large-cloud FPS indices), two backward runs for bit-equality,
+and times every kernel at the main path's shapes beside its plain twin, its
+bound and, for the scatter, ``index_add_``. Each timed launch is also held
+against its plain twin at that shape (indices equal, values within 1e-5)
+and the scatters run twice for bit-equality. The line before the last is
+one JSON object with a record per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line. Without CUDA it exits 1 at once.
 """
@@ -123,7 +131,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import pytorch3d_pointops_tpu_torch as ppt
     from pytorch3d_pointops_tpu_torch import _build
+    from pytorch3d_pointops_tpu_torch.kernels import ball_query as kb
     from pytorch3d_pointops_tpu_torch.kernels import chamfer as kc
+    from pytorch3d_pointops_tpu_torch.kernels import fps as kf
     from pytorch3d_pointops_tpu_torch.kernels import knn as kk
     from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
     from pytorch3d_pointops_tpu_torch.ops.knn import _apply_pad_conventions
@@ -152,7 +162,9 @@ def main() -> int:
               f"registers, {sum(spills)} bytes of spill stores")
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {gpu_line()}")
 
-    stats = {k: {"err": 0.0} for k in ("knn", "chamfer", "rows", "k1")}
+    stats = {k: {"err": 0.0} for k in ("knn", "chamfer", "rows", "k1", "ball",
+                                       "fps_batched", "fps_resident",
+                                       "fps_streaming")}
 
     def note_err(key, err):
         stats[key]["err"] = max(stats[key]["err"], float(err))
@@ -205,6 +217,55 @@ def main() -> int:
             err = (out1 - ref).abs().max().item()
             note_err(key, err)
             require(err <= TOL, f"scatter {key} {N}x{E}x{C}: err {err}")
+
+    # Ball query: ragged lengths on both sides, one cloud fully masked; a
+    # 1/8 grid whose radius (0.25 at D=3, 0.75 at D=16) squares exactly to
+    # pair distances, so boundary points are real; random points otherwise.
+    bl1 = T(np.array([300, 120, 0, 300]), torch.int64)
+    bl2 = T(np.array([2000, 700, 2000, 0]), torch.int64)
+    for D in (3, 16):
+        for grid in (True, False):
+            if grid:
+                q, r = grid_points(rng, (4, 300, D)), (0.25 if D == 3 else 0.75)
+                ref_pts = grid_points(rng, (4, 2000, D))
+            else:
+                q = rng.uniform(-0.5, 0.5, size=(4, 300, D)).astype(np.float32)
+                ref_pts = rng.uniform(-0.5, 0.5, size=(4, 2000, D)).astype(np.float32)
+                r = 0.2 if D == 3 else 1.0
+            q, ref_pts, r2 = T(q), T(ref_pts), kb.squared_radius(r)
+            for K in (1, 32, 100, 500):
+                dk, ik = kb.ball_query_cuda(q, ref_pts, bl1, bl2, K, r2)
+                dp, ip = kb.ball_query_plain(q, ref_pts, bl1, bl2, K, r2)
+                torch.cuda.synchronize()
+                err = (dk - dp).abs().max().item()
+                note_err("ball", err)
+                what = f"ball_query D={D} grid={grid} K={K}"
+                require(torch.equal(ik, ip), f"{what}: idx")
+                require(err <= TOL, f"{what}: err {err}")
+                require((ik >= 0).any(), f"{what}: no point in any ball")
+    # FPS: every entry point called directly. Ragged lengths with a 0, K
+    # past the length, explicit starts; on the grid (3^D distinct points at
+    # most, 27 at D=3) K=100 runs past the distinct points into all-zero
+    # rounds. The grid kernels run at two sizes spanning many blocks.
+    for D in (3, 16):
+        for grid in (True, False):
+            for N, P in ((5, 3000), (2, 200_000)):
+                gen_pts = (rng.integers(0, 3, size=(N, P, D)).astype(np.float32) / 8
+                           if grid else rng.normal(size=(N, P, D)).astype(np.float32))
+                pts = T(gen_pts)
+                lens = np.array([P, P // 2 + 1, 0, 17, P - 1])[:N]
+                Ks = np.array([100, 50, 10, 40, 1])[:N]
+                starts = np.array([5, P // 2, 0, 16, 0])[:N]
+                lens, Ks, starts = (T(a, torch.int64) for a in (lens, Ks, starts))
+                ref = kf.fps_plain(pts, lens, Ks, starts, 100)
+                wrappers = [kf.fps_resident, kf.fps_streaming]
+                if P <= kf.fps_limits(D, dev)[0]:
+                    wrappers.insert(0, kf.fps_batched)
+                for wrapper in wrappers:
+                    out = wrapper(pts, lens, Ks, starts, 100)
+                    torch.cuda.synchronize()
+                    require(torch.equal(out, ref),
+                            f"{wrapper.__name__} D={D} grid={grid} {N}x{P}: idx")
     print("phase 2: every kernel agrees with its plain twin "
           f"(max abs err {json.dumps({k: v['err'] for k, v in stats.items()})})")
 
@@ -293,15 +354,19 @@ def main() -> int:
     def plain_path():
         """Route the ops through the plain twins, on the card."""
         saved = (kk.knn_topk, kc.chamfer_nn_bidirectional, ks.scatter_add_rows,
-                 ks.scatter_add_k1)
+                 ks.scatter_add_k1, kb.ball_query_points, kf.fps_batched,
+                 kf.fps_resident, kf.fps_streaming)
         kk.knn_topk = kk.knn_topk_plain
         kc.chamfer_nn_bidirectional = kc.chamfer_nn_plain
         ks.scatter_add_rows = ks.scatter_add_k1 = ks.scatter_add_plain
+        kb.ball_query_points = kb.ball_query_plain
+        kf.fps_batched = kf.fps_resident = kf.fps_streaming = kf.fps_plain
         try:
             yield
         finally:
             (kk.knn_topk, kc.chamfer_nn_bidirectional, ks.scatter_add_rows,
-             ks.scatter_add_k1) = saved
+             ks.scatter_add_k1, kb.ball_query_points, kf.fps_batched,
+             kf.fps_resident, kf.fps_streaming) = saved
 
     # Config 3, one step against the plain path, and two bit-equal backwards.
     # The gradients are held relative to their largest entry: with mean/mean
@@ -355,6 +420,82 @@ def main() -> int:
                                 T(np.array([100000]), torch.int64), 16, 2)
     require(torch.equal(ns_sub[1][:, :4096], sub_ref[1]),
             "north-star full-run idx differ from plain on the subset")
+
+    # ---------------- phase 3b: config 2, PointNet++ grouping ----------------
+    def unit_ball(n):
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        return (d * rng.uniform(size=(n, 1)) ** (1 / 3)).astype(np.float32)
+
+    N2, P2c, S2, K2, R2 = 32, 4096, 512, 32, 0.2
+    pts2 = T(unit_ball(N2 * P2c).reshape(N2, P2c, 3))
+    len2 = T(rng.integers(3500, P2c + 1, size=N2), torch.int64)
+    big1 = T(unit_ball(1_000_000)[None])
+    big4 = T(unit_ball(4_000_000)[None])
+
+    def group_step(x):
+        x = x.detach().requires_grad_(True)
+        centroids, fidx = ppt.sample_farthest_points(x, len2, K=S2)
+        g = ppt.ball_query(centroids, x, lengths2=len2, K=K2, radius=R2)
+        local = g.knn - centroids[:, :, None]
+        loss = local.square().sum() + g.dists.sum()
+        loss.backward()
+        return loss, fidx, g, x.grad
+
+    counters2 = (kf.fps_batched, kf.fps_resident, kf.fps_streaming,
+                 kb.ball_query_cuda, ks.scatter_add_rows)
+    for c in (*counters, *counters2):
+        c.launches = 0
+    # -- the config 2 main path: nothing but what a user would call --
+    group_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss2, fidx2, g2, grad2 = group_step(pts2)
+        torch.cuda.synchronize()
+        group_ms.append((time.perf_counter() - t0) * 1e3)
+    big_ms = {}
+    big_idx = {}
+    for label, cloud, K in (("1M", big1, 1024), ("4M", big4, 512)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, big_idx[label] = ppt.sample_farthest_points(cloud, K=K)
+        torch.cuda.synchronize()
+        big_ms[label] = (time.perf_counter() - t0) * 1e3
+    launches2 = {c.__name__: c.launches for c in counters2}
+    # -- end of the config 2 main path --
+    print(f"phase 3b: config 2 launches {json.dumps(launches2)}")
+    require(all(v > 0 for v in launches2.values()),
+            "a kernel of the config 2 path never ran")
+    print(f"  config 2 step ms {[round(t, 3) for t in group_ms]}, median after "
+          f"warm-up {statistics.median(group_ms[1:]):.3f}; loss {loss2.item():.6g}; "
+          f"balls filled {(g2.idx >= 0).float().mean().item():.4f} of K={K2}")
+    print(f"  large-cloud FPS ms (one call each, first call): {json.dumps(big_ms)}")
+    require(torch.isfinite(grad2).all() and grad2.abs().max() > 0,
+            "config 2 gradient not finite or all zero")
+
+    # One config 2 step against the plain path, and two bit-equal backwards.
+    loss2b, fidx2b, g2b, grad2b = group_step(pts2)
+    require(torch.equal(grad2, grad2b), "config 2 backward not bit-equal")
+    with plain_path():
+        loss2p, fidx2p, g2p, grad2p = group_step(pts2)
+    require(torch.equal(fidx2, fidx2p), "config 2 FPS idx differ from plain")
+    require(torch.equal(g2.idx, g2p.idx), "config 2 ball idx differ from plain")
+    rel2 = rel_err(loss2, loss2p)
+    gscale2 = grad2p.abs().max().item()
+    gerr2 = (grad2 - grad2p).abs().max().item()
+    print(f"  config 2 vs plain: FPS and ball idx equal, loss rel err {rel2:.3g}, "
+          f"grad max abs err {gerr2:.3g} (largest entry {gscale2:.3g}); two "
+          "backwards bit-equal")
+    require(rel2 <= TOL, f"config 2 loss disagrees with the plain path: {rel2}")
+    require(gerr2 <= TOL * gscale2,
+            f"config 2 gradients disagree with the plain path: {gerr2} vs {gscale2}")
+    for label, cloud, K in (("1M", big1, 1024), ("4M", big4, 512)):
+        one = T(np.array([cloud.shape[1]]), torch.int64)
+        ref = kf.fps_plain(cloud, one, T(np.array([K]), torch.int64),
+                           T(np.array([0]), torch.int64), K)
+        require(torch.equal(big_idx[label], ref), f"FPS {label}: idx differ from plain")
+    print("  large-cloud FPS vs plain: idx equal (1M K=1024, 4M K=512)")
 
     # ---------------- kernel times at the main path's shapes ----------------
     records = []
@@ -434,9 +575,70 @@ def main() -> int:
             ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
             library_ms=library_ms,
         ))
+
+    # Ball query at the config 2 shape, on the main path's own centroids. The
+    # bound counts the pairs each query must visit: up to its K-th hit, or
+    # all of lengths2 when it has fewer.
+    cent = ppt.masked_gather(pts2, fidx2).detach()
+    l1c = T(np.full(N2, S2), torch.int64)
+    r2c = kb.squared_radius(R2)
+    dk, ik = kb.ball_query_cuda(cent, pts2, l1c, len2, K2, r2c)
+    dp, ip = kb.ball_query_plain(cent, pts2, l1c, len2, K2, r2c)
+    err = (dk - dp).abs().max().item()
+    note_err("ball", err)
+    require(torch.equal(ik, ip) and err <= TOL, f"ball_query config 2: err {err}")
+    ms = cuda_ms(lambda: kb.ball_query_cuda(cent, pts2, l1c, len2, K2, r2c), reps=10)
+    plain_ms = cuda_ms(lambda: kb.ball_query_plain(cent, pts2, l1c, len2, K2, r2c),
+                       reps=3)
+    visited = torch.where((ip >= 0).sum(-1) == K2, ip[..., -1] + 1, len2[:, None])
+    pairs = int(visited.sum())
+    b = bound(4 * 3 * (N2 * S2 + int(len2.sum())) + 2 * N2 * 8
+              + N2 * S2 * K2 * (4 + 8), pairs * 3 * 3)
+    records.append(dict(
+        name="ball_query", route="cuda",
+        source="pytorch3d_pointops_tpu_torch/csrc/ball_query.cu",
+        replaces="pytorch3d_pointops_tpu/kernels/ball_query_pallas.py:207",
+        launches=launches2["ball_query_cuda"], max_abs_err=stats["ball"]["err"],
+        ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None,
+    ))
+    print(f"  ball_query config 2: {pairs} pairs to visit "
+          f"({pairs / (N2 * S2):.1f} a query)")
+
+    # FPS at the main path's shapes: config 2 on the block kernel, the 1M
+    # and 4M clouds on the grid kernels. The K rounds run one after another;
+    # the bound counts (3D+2) operations a point in every round.
+    for name, wrapper, line, cloud, lens, K in (
+        ("fps_batched", kf.fps_batched, 139, pts2, len2, S2),
+        ("fps_resident", kf.fps_resident, 268, big1, None, 1024),
+        ("fps_streaming", kf.fps_streaming, 474, big4, None, 512),
+    ):
+        N, P, D = cloud.shape
+        lens = T(np.full(N, P), torch.int64) if lens is None else lens
+        Ks = T(np.full(N, K), torch.int64)
+        starts = T(np.zeros(N), torch.int64)
+        fargs = (cloud, lens, Ks, starts, K)
+        out = wrapper(*fargs)
+        ref = kf.fps_plain(*fargs)
+        require(torch.equal(out, ref), f"{name} at the main path's shape: idx")
+        note_err(name, (out - ref).abs().max().item())
+        ms = cuda_ms(lambda: wrapper(*fargs), reps=5)
+        plain_ms = cuda_ms(lambda: kf.fps_plain(*fargs), reps=1, warmup=0)
+        rounds = (torch.minimum(lens, Ks) - 1).clamp(min=0)
+        b = bound(4 * D * int(lens.sum()) + 3 * N * 8 + N * K * 8,
+                  int((rounds * lens).sum()) * (3 * D + 2))
+        records.append(dict(
+            name=name, route="cuda",
+            source="pytorch3d_pointops_tpu_torch/csrc/fps.cu",
+            replaces=f"pytorch3d_pointops_tpu/kernels/fps_pallas.py:{line}",
+            launches=launches2[name], max_abs_err=stats[name]["err"],
+            ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None,
+        ))
     print("timed shapes: knn_topk 1 x 100000 x 100000 K=16 D=3; chamfer_nn_bidir "
           "16 x 10000 (ragged 9000-10000) D=3; scatter_add_rows E=1,600,000 "
-          "into 100000 x 3; scatter_add_k1 E=16 x 10000 into 16 x 10000 x 3")
+          "into 100000 x 3; scatter_add_k1 E=16 x 10000 into 16 x 10000 x 3; "
+          "ball_query 32 x 512 queries vs 32 x 4096 (ragged 3500-4096) K=32 "
+          "r=0.2; fps_batched 32 x 4096 (ragged) K=512; fps_resident 1 x "
+          "1,000,000 K=1024; fps_streaming 1 x 4,000,000 K=512; all D=3")
 
     print(json.dumps({"kernels": records}))
     print(gpu_line())

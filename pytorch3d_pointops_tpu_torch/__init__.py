@@ -5,13 +5,25 @@ Plain functions on torch tensors under the JAX package's names. An op runs
 where its input tensors are: on CUDA tensors through hand-written Hopper
 kernels (``csrc/``, built with ``nvcc`` at first use), on CPU tensors through
 their plain PyTorch twins. This package exports what is ported so far: KNN,
-the chamfer loss and the ragged ``Pointclouds`` container.
+the chamfer loss, ball query, farthest point sampling, the gather and
+covariance helpers, and the ragged ``Pointclouds`` container.
 """
 
 __version__ = "0.1.0"
 
 from .convert import pointclouds_from_numpy, tensors_from_numpy
-from .ops import chamfer_distance, knn_check_version, knn_gather, knn_points
+from .ops import (
+    ball_query,
+    chamfer_distance,
+    get_point_covariances,
+    knn_check_version,
+    knn_gather,
+    knn_points,
+    masked_gather,
+    sample_farthest_points,
+    sample_farthest_points_naive,
+    wmean,
+)
 from .structures import (
     Pointclouds,
     all_close,
@@ -26,10 +38,16 @@ from .structures import (
 
 __all__ = [
     "__version__",
+    "ball_query",
     "chamfer_distance",
+    "get_point_covariances",
     "knn_check_version",
     "knn_gather",
     "knn_points",
+    "masked_gather",
+    "sample_farthest_points",
+    "sample_farthest_points_naive",
+    "wmean",
     "Pointclouds",
     "all_close",
     "get_bounding_boxes",

@@ -22,7 +22,7 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
-SOURCES = ("knn", "chamfer_nn", "scatter")
+SOURCES = ("knn", "chamfer_nn", "scatter", "ball_query", "fps")
 
 # -fmad=false keeps every multiply and add rounded on its own, as PyTorch's
 # elementwise ops round them, so distances match the plain versions bit for

@@ -1,0 +1,151 @@
+"""Iterative farthest point sampling (FPS), in PyTorch.
+
+The port of ``pytorch3d_pointops_tpu/ops/fps.py``. The selection is
+sequential over the K rounds and data-parallel over the points of a round;
+on ties the argmax keeps the first maximal index. idx is padded with -1 past
+``min(K[n], lengths[n])``, the gathered points with zero rows; the start
+index is 0 unless ``random_start_point``. The selection carries no
+gradient: the sampled points are differentiable through ``masked_gather``.
+
+On CUDA tensors ``_route`` sends each batch to one of the three FPS
+kernels of ``kernels/fps.py`` by cloud size; on CPU tensors
+every route runs the plain twin.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..kernels import fps as _fps
+from .knn import _lengths
+from .utils import masked_gather
+
+
+def _normalize_K(K, N: int, device) -> Tuple[torch.Tensor, int]:
+    """K as an int, a list or tuple, or an (N,) array or tensor, to an (N,)
+    int64 tensor on ``device`` and its maximum as a host int."""
+    if isinstance(K, (int, np.integer)):
+        K_t = torch.full((N,), int(K), dtype=torch.int64)
+    else:
+        K_t = torch.as_tensor(np.asarray(K) if isinstance(K, (list, tuple)) else K)
+        K_t = K_t.to(torch.int64).reshape(-1)
+    if K_t.shape[0] != N:
+        raise ValueError("K and points must have the same batch dimension")
+    K_t = K_t.to(device)
+    max_K = int(K_t.max()) if K_t.numel() else 0
+    return K_t, max(max_K, 0)
+
+
+def _route(points: torch.Tensor):
+    """The FPS entry point for this batch: one block per cloud while a
+    cloud fits one block's shared memory, else the whole card with the cloud
+    in shared memory while it fits there, else the whole card streaming from
+    device memory. Each earlier route was the faster at every batch shape it
+    takes, one cloud included, on an H100 (``tune_fps.py``, PERF.md)."""
+    _, P, D = points.shape
+    if not points.is_cuda:
+        return _fps.fps_batched  # every entry point runs the plain twin here
+    block_max, resident_max = _fps.fps_limits(D, points.device)
+    if P <= block_max:
+        return _fps.fps_batched
+    if P <= resident_max:
+        return _fps.fps_resident
+    return _fps.fps_streaming
+
+
+def _random_starts(lengths, generator):
+    """floor(u * max(length, 1)), clipped to length - 1, with u uniform in
+    [0, 1) drawn from ``generator``."""
+    u = torch.rand((lengths.shape[0],), generator=generator,
+                   device=generator.device).to(lengths.device)
+    starts = torch.floor(u * lengths.clamp(min=1)).to(torch.int64)
+    return torch.minimum(starts, (lengths - 1).clamp(min=0))
+
+
+def _prepare(points, lengths, K, random_start_point, generator):
+    N, P, _ = points.shape
+    lengths = _lengths(lengths, N, P, points.device)
+    if lengths.shape != (N,):
+        raise ValueError("points and lengths must have same batch dimension.")
+    K_t, max_K = _normalize_K(K, N, points.device)
+    if random_start_point:
+        if generator is None:
+            raise ValueError(
+                "random_start_point=True requires a torch.Generator `generator`."
+            )
+        starts = _random_starts(lengths, generator)
+    else:
+        starts = torch.zeros((N,), dtype=torch.int64, device=points.device)
+    return lengths, K_t, max_K, starts
+
+
+def sample_farthest_points(
+    points: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+    K: Union[int, List, torch.Tensor] = 50,
+    random_start_point: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Subsample ``K`` maximally spread points per cloud.
+
+    Args:
+        points: (N, P, D) clouds.
+        lengths: (N,) valid lengths (default all P).
+        K: int, list, or (N,) array or tensor of per-cloud sample counts.
+        random_start_point: start from a random valid index per cloud.
+        generator: the ``torch.Generator`` for random starts; required iff
+            ``random_start_point``.
+
+    Returns:
+        (selected_points (N, max_K, D) zero-padded,
+         selected_indices (N, max_K) int64, -1-padded).
+    """
+    points = points.to(torch.float32).contiguous()
+    lengths, K_t, max_K, starts = _prepare(
+        points, lengths, K, random_start_point, generator
+    )
+    with torch.no_grad():
+        idx = _route(points)(points.detach(), lengths, K_t, starts, max_K)
+    return masked_gather(points, idx), idx
+
+
+def sample_farthest_points_naive(
+    points: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+    K: Union[int, List, torch.Tensor] = 50,
+    random_start_point: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A numpy oracle, one cloud and one round at a time, with the same
+    arguments, random starts and results as ``sample_farthest_points``."""
+    points = torch.as_tensor(points).to(torch.float32)
+    lengths, K_t, max_K, starts = _prepare(
+        points, lengths, K, random_start_point, generator
+    )
+    pts = points.detach().cpu().numpy()
+    lengths_np = lengths.cpu().numpy()
+    K_np = K_t.cpu().numpy()
+    starts_np = starts.cpu().numpy()
+    N, _, D = pts.shape
+    all_idx = np.full((N, max_K), -1, np.int64)
+    for n in range(N):
+        L = int(lengths_np[n])
+        k_n = min(L, int(K_np[n]))
+        if k_n <= 0:
+            continue
+        closest = np.full((L,), np.inf, np.float32)
+        selected = int(starts_np[n])
+        all_idx[n, 0] = selected
+        for i in range(1, k_n):
+            d2 = np.zeros((L,), np.float32)
+            for d in range(D):
+                diff = pts[n, :L, d] - pts[n, selected, d]
+                d2 = d2 + diff * diff
+            closest = np.minimum(closest, d2)
+            selected = int(np.argmax(closest))
+            all_idx[n, i] = selected
+    idx = torch.from_numpy(all_idx).to(points.device)
+    return masked_gather(points, idx), idx

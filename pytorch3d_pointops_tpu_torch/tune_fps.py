@@ -1,0 +1,100 @@
+"""Times the three FPS kernels against one another on one CUDA card, to set
+the routing thresholds of ``ops/fps.py``.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python -m pytorch3d_pointops_tpu_torch.tune_fps [--seed 0] [--out FILE]
+
+For each batch shape (N clouds of P points, D=3, uniform in the unit cube,
+K=512 rounds, or K=1024 past 500k points) it times every entry point that
+takes the shape (CUDA events, median of 3 after a warm-up) and prints one
+JSON line per shape, then the card's name and power limit. Each timed
+output is also checked against ``fps_plain``'s at one shape per kernel.
+Exits 1 without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+SHAPES = (
+    # (N, P): a few clouds around one block's capacity, then large clouds.
+    (1, 2048), (1, 4096), (1, 8192), (1, 14000),
+    (2, 8192), (4, 8192), (8, 8192), (4, 14000), (8, 14000), (16, 14000),
+    (32, 4096), (1, 100_000), (1, 500_000), (1, 1_000_000), (1, 1_800_000),
+)
+
+
+def _ms(fn, reps=3):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, help="also append the lines here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("tune_fps: no CUDA device", file=sys.stderr)
+        return 1
+    from .kernels import fps as kf
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    block_max, resident_max = kf.fps_limits(3, dev)
+    lines = []
+    checked = set()
+    for N, P in SHAPES:
+        K = 512 if P <= 500_000 else 1024
+        pts = torch.rand((N, P, 3), generator=gen, device=dev)
+        lengths = torch.full((N,), P, dtype=torch.int64, device=dev)
+        Ks = torch.full((N,), K, dtype=torch.int64, device=dev)
+        starts = torch.zeros((N,), dtype=torch.int64, device=dev)
+        row = {"N": N, "P": P, "D": 3, "K": K}
+        for name, fn, cap in (("batched", kf.fps_batched, block_max),
+                              ("resident", kf.fps_resident, resident_max),
+                              ("streaming", kf.fps_streaming, None)):
+            if cap is not None and P > cap:
+                row[name + "_ms"] = None
+                continue
+            if name not in checked and P <= 100_000:
+                out = fn(pts, lengths, Ks, starts, K)
+                ref = kf.fps_plain(pts, lengths, Ks, starts, K)
+                if not torch.equal(out, ref):
+                    raise RuntimeError(f"tune_fps: {name} disagrees with fps_plain")
+                checked.add(name)
+            row[name + "_ms"] = _ms(lambda: fn(pts, lengths, Ks, starts, K))
+        lines.append(json.dumps(row))
+        print(lines[-1], flush=True)
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    print(json.dumps({"limits_D3": {"block": block_max, "resident": resident_max},
+                      "gpu": gpu}))
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write("\n".join(lines) + "\n" + gpu + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,9 +27,15 @@ def test_port_imports_no_jax():
         "pytorch3d_pointops_tpu_torch",
         "pytorch3d_pointops_tpu_torch.ops.knn",
         "pytorch3d_pointops_tpu_torch.ops.chamfer",
+        "pytorch3d_pointops_tpu_torch.ops.ball_query",
+        "pytorch3d_pointops_tpu_torch.ops.fps",
+        "pytorch3d_pointops_tpu_torch.ops.utils",
         "pytorch3d_pointops_tpu_torch.kernels.knn",
         "pytorch3d_pointops_tpu_torch.kernels.scatter",
         "pytorch3d_pointops_tpu_torch.kernels.chamfer",
+        "pytorch3d_pointops_tpu_torch.kernels.ball_query",
+        "pytorch3d_pointops_tpu_torch.kernels.fps",
+        "pytorch3d_pointops_tpu_torch.tune_fps",
         "pytorch3d_pointops_tpu_torch.structures.pointclouds",
         "pytorch3d_pointops_tpu_torch.convert",
         "pytorch3d_pointops_tpu_torch._build",
@@ -52,3 +58,5 @@ def test_port_exports_the_jax_names_it_ports():
     for name in ppt.__all__:
         assert hasattr(ppt, name)
     assert {"knn_points", "knn_gather", "chamfer_distance", "Pointclouds"} <= ported
+    assert {"ball_query", "sample_farthest_points", "sample_farthest_points_naive",
+            "masked_gather", "wmean", "get_point_covariances"} <= ported

@@ -13,7 +13,11 @@ plain PyTorch twin on the card: ragged lengths, fully masked clouds, norms
 (ball query), points on a 1/8 grid so that ties and ball boundaries are
 real, every FPS entry point with per-cloud K (K past the length and past the
 number of distinct points), explicit starts and an empty cloud, and the
-scatter run twice and compared bit for bit. Phase 3 drives two main paths at
+scatter: its radix sort (``sort_plan``) equal to the stable argsort
+(``segment_plan``) at one, two and three passes, on uniform targets and on
+targets that crowd 16 rows, and both entry points run twice and compared
+bit for bit with each other and with the plain twin on CPU copies. Phase 3
+drives two main paths at
 full size through the public entry points, each with every launch counter
 set to 0 just before and read just after:
 
@@ -36,7 +40,10 @@ subset; the large-cloud FPS indices), two backward runs for bit-equality,
 and times every kernel at the main path's shapes beside its plain twin, its
 bound and, for the scatter, ``index_add_``. Each timed launch is also held
 against its plain twin at that shape (indices equal, values within 1e-5)
-and the scatters run twice for bit-equality. The line before the last is
+and the scatters run twice for bit-equality; each scatter's sort and
+segment sum are timed apart, launch by launch, as is a skewed scatter (one
+row of 100,000 entries), and config 2's backward scatters print their
+longest segment. The line before the last is
 one JSON object with a record per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line. Without CUDA it exits 1 at once.
@@ -107,6 +114,28 @@ def wall_ms(fn, reps: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def scatter_steps(idx, contrib, P2, reps=10):
+    """Median CUDA-event time in ms of each step of one scatter call: the
+    zeroing of its counters, the histogram, each radix pass, the segment
+    sum."""
+    from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
+
+    passes = ks.radix_digits(idx.shape[0], idx.shape[1], P2)[0]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(passes + 4)]
+    for e in events:
+        e.record()
+    torch.cuda.synchronize()
+    times = [[] for _ in range(passes + 3)]
+    for _ in range(reps):
+        ks._launch(idx, contrib, P2, events=events)
+        torch.cuda.synchronize()
+        for i, t in enumerate(times):
+            t.append(events[i].elapsed_time(events[i + 1]))
+    names = ["zero", "histogram", *(f"pass {p + 1}" for p in range(passes)),
+             "segment sum"]
+    return {n: statistics.median(t) for n, t in zip(names, times)}
 
 
 def bound(bytes_moved: float, ops: float):
@@ -205,18 +234,41 @@ def main() -> int:
                     require(err <= TOL, f"chamfer_nn D={D} norm={norm}: err {err}")
                 require(torch.equal(outk[1], outp[1]) and torch.equal(outk[3], outp[3]),
                         f"chamfer_nn D={D} norm={norm}: idx")
-    for key, wrapper in (("rows", ks.scatter_add_rows), ("k1", ks.scatter_add_k1)):
-        for N, E, P2, C in ((3, 4097, 1000, 3), (1, 777, 64, 6), (2, 999, 300, 11)):
-            idx = T(rng.integers(-1, P2, size=(N, E)), torch.int64)
+    # The scatter: its radix sort against the stable argsort at one, two and
+    # three passes (N * P2 of 2,000, 100,000 and 5,000,000 buckets), on
+    # uniform targets and on targets where half the entries share 16 rows;
+    # both entry points bit-equal run to run and to the plain twin on CPU
+    # copies (which sums each row in entry order, as the kernel does), and
+    # within TOL of the plain twin on the card (float atomics) where no row
+    # is long.
+    def hub_targets(N, E, P2):
+        hubs = rng.integers(0, P2, size=16)
+        return np.where(rng.uniform(size=(N, E)) < 0.5, rng.choice(hubs, size=(N, E)),
+                        rng.integers(-1, P2, size=(N, E)))
+
+    for N, E, P2, C in ((3, 4097, 1000, 3), (1, 777, 64, 6), (2, 999, 300, 11),
+                        (2, 3000, 1000, 3), (4, 50000, 25000, 3),
+                        (5, 200000, 1_000_000, 3)):
+        for hub in (False, True):
+            idx = T(hub_targets(N, E, P2) if hub else rng.integers(-1, P2, size=(N, E)),
+                    torch.int64)
             contrib = T(rng.normal(size=(N, E, C)).astype(np.float32))
-            out1 = wrapper(idx, contrib, P2)
-            out2 = wrapper(idx, contrib, P2)
-            ref = ks.scatter_add_plain(idx, contrib, P2)
-            torch.cuda.synchronize()
-            require(torch.equal(out1, out2), f"scatter {key} {N}x{E}: not bit-equal")
-            err = (out1 - ref).abs().max().item()
-            note_err(key, err)
-            require(err <= TOL, f"scatter {key} {N}x{E}x{C}: err {err}")
+            what = f"{N}x{E} P2={P2} C={C} hub={hub}"
+            plan, ref_plan = ks.sort_plan(idx, P2), ks.segment_plan(idx, P2)
+            require(torch.equal(plan[0], ref_plan[0]) and torch.equal(plan[1], ref_plan[1]),
+                    f"sort_plan {what} ({ks.radix_digits(N, E, P2)[0]} passes)")
+            cpu_ref = ks.scatter_add_plain(idx.cpu(), contrib.cpu(), P2)
+            for key, wrapper in (("rows", ks.scatter_add_rows), ("k1", ks.scatter_add_k1)):
+                out1 = wrapper(idx, contrib, P2)
+                out2 = wrapper(idx, contrib, P2)
+                torch.cuda.synchronize()
+                require(torch.equal(out1, out2), f"scatter {key} {what}: not bit-equal")
+                require(torch.equal(out1.cpu(), cpu_ref),
+                        f"scatter {key} {what}: not bit-equal to the CPU twin")
+                if not hub:
+                    err = (out1 - ks.scatter_add_plain(idx, contrib, P2)).abs().max().item()
+                    note_err(key, err)
+                    require(err <= TOL, f"scatter {key} {what}: err {err}")
 
     # Ball query: ragged lengths on both sides, one cloud fully masked; a
     # 1/8 grid whose radius (0.25 at D=3, 0.75 at D=16) squares exactly to
@@ -490,6 +542,40 @@ def main() -> int:
     require(rel2 <= TOL, f"config 2 loss disagrees with the plain path: {rel2}")
     require(gerr2 <= TOL * gscale2,
             f"config 2 gradients disagree with the plain path: {gerr2} vs {gscale2}")
+    # Config 2's backward scatters, recorded in one more step: each one's
+    # longest segment (the entries of its busiest target row, one thread's
+    # serial sum), its skipped entries and its time. Beside them, the ball
+    # gather's index as it was before its padded slots were skipped: every
+    # padded slot sent to row 0 of its cloud.
+    def longest_segment(idx, P2):
+        rows = (idx + torch.arange(idx.shape[0], device=dev)[:, None] * P2)[idx >= 0]
+        return int(torch.bincount(rows).max()) if rows.numel() else 0
+
+    calls = []
+    launch = ks._launch
+
+    def recording(idx, contrib, P2, events=None):
+        calls.append((idx, contrib, P2))
+        return launch(idx, contrib, P2, events)
+
+    ks._launch = recording
+    try:
+        group_step(pts2)
+    finally:
+        ks._launch = launch
+    require(len(calls) == 3, f"config 2 backward made {len(calls)} scatters, not 3")
+    scatter_rows = ks.scatter_add_rows
+    for i, (idx, contrib, P2) in enumerate(calls):
+        print(f"  config 2 backward scatter {i}: {idx.shape[0]} x {idx.shape[1]} "
+              f"entries ({int((idx < 0).sum())} skipped) into {P2} rows, longest "
+              f"segment {longest_segment(idx, P2)}, "
+              f"{cuda_ms(lambda: scatter_rows(idx, contrib, P2), reps=10):.4f} ms")
+    hub_idx = torch.where(g2.idx < 0, 0, g2.idx).reshape(N2, -1)
+    hub_c = torch.randn((*hub_idx.shape, 3), device=dev)
+    print(f"  config 2 ball gather with padded slots sent to row 0: "
+          f"{int((g2.idx < 0).sum())} padded slots, longest segment "
+          f"{longest_segment(hub_idx, P2c)}, "
+          f"{cuda_ms(lambda: scatter_rows(hub_idx, hub_c, P2c), reps=10):.4f} ms")
     for label, cloud, K in (("1M", big1, 1024), ("4M", big4, 512)):
         one = T(np.array([cloud.shape[1]]), torch.int64)
         ref = kf.fps_plain(cloud, one, T(np.array([K]), torch.int64),
@@ -540,7 +626,9 @@ def main() -> int:
     ))
 
     # The scatters take the main path's own indices: the north-star K=16
-    # neighbours (grad_p2) and the config 3 x -> y nearest neighbours.
+    # neighbours (grad_p2) and the config 3 x -> y nearest neighbours. Each
+    # call is also timed step by step (CUDA events recorded between its
+    # launches): the sort is every step but the segment sum.
     k1_idx = torch.where(torch.arange(P3, device=dev)[None] < l3x[:, None], outk[1], -1)
     for key, wrapper, idx, P2 in (
         ("rows", ks.scatter_add_rows, ns_sub[1].reshape(1, -1), 100000),
@@ -548,6 +636,9 @@ def main() -> int:
     ):
         N, E = idx.shape
         contrib = torch.randn((N, E, 3), device=dev)
+        plan, ref_plan = ks.sort_plan(idx, P2), ks.segment_plan(idx, P2)
+        require(torch.equal(plan[0], ref_plan[0]) and torch.equal(plan[1], ref_plan[1]),
+                f"sort_plan at the {key} main path's shape")
         out1 = wrapper(idx, contrib, P2)
         out2 = wrapper(idx, contrib, P2)
         err = (out1 - ks.scatter_add_plain(idx, contrib, P2)).abs().max().item()
@@ -556,6 +647,11 @@ def main() -> int:
         note_err(key, err)
         require(err <= TOL, f"scatter {key} at the main path's shape: err {err}")
         ms = cuda_ms(lambda: wrapper(idx, contrib, P2), reps=10)
+        steps = scatter_steps(idx, contrib, P2)
+        print(f"  scatter_add_{key} {N}x{E} into {P2} rows: sort "
+              f"{sum(steps.values()) - steps['segment sum']:.4f} ms + segment sum "
+              f"{steps['segment sum']:.4f} ms; per launch (ms) "
+              f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}")
         plain_ms = cuda_ms(lambda: ks.scatter_add_plain(idx, contrib, P2), reps=10)
         rows = torch.where(
             idx >= 0, idx + torch.arange(N, device=dev)[:, None] * P2, N * P2
@@ -575,6 +671,20 @@ def main() -> int:
             ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
             library_ms=library_ms,
         ))
+
+    # A skewed input: one row receives 100,000 of 200,000 entries. The
+    # segment sum gives every row one thread, so that row is one serial sum.
+    skew_idx = T(rng.integers(0, 100000, size=(1, 200000)), torch.int64)
+    skew_idx[0, ::2] = 7
+    skew_c = torch.randn((1, 200000, 3), device=dev)
+    require(torch.equal(ks.scatter_add_rows(skew_idx, skew_c, 100000).cpu(),
+                        ks.scatter_add_plain(skew_idx.cpu(), skew_c.cpu(), 100000)),
+            "skewed scatter: not bit-equal to the CPU twin")
+    skew_ms = cuda_ms(lambda: ks.scatter_add_rows(skew_idx, skew_c, 100000), reps=5)
+    skew_steps = scatter_steps(skew_idx, skew_c, 100000, reps=5)
+    print(f"  skewed scatter (100,000 of 200,000 entries on one of 100,000 rows): "
+          f"{skew_ms:.4f} ms; per launch (ms) "
+          f"{json.dumps({k: round(v, 4) for k, v in skew_steps.items()})}")
 
     # Ball query at the config 2 shape, on the main path's own centroids. The
     # bound counts the pairs each query must visit: up to its K-th hit, or

@@ -107,6 +107,10 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> ctypes.c_void_p:
+    """The current CUDA stream of ``device``, as a raw pointer. Reads it
+    without building a ``torch.cuda.Stream`` (which costs microseconds of
+    host time per launch)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))

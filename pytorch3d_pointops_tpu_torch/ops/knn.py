@@ -172,11 +172,16 @@ def knn_check_version(version: int, D: int, K: int) -> bool:
 
 
 class _Gather(torch.autograd.Function):
-    """Row gather whose backward is the deterministic segment-sum."""
+    """Row gather whose backward is the deterministic segment-sum.
+
+    The forward gathers at ``idx_flat`` (every entry a valid row); the
+    backward scatters at ``scatter_idx``, which is -1 where the caller masks
+    the gathered value out. Those entries would only add exact zeros, and
+    sending them to a real row (row 0, say) makes one long segment there."""
 
     @staticmethod
-    def forward(ctx, x, idx_flat):
-        ctx.save_for_backward(idx_flat)
+    def forward(ctx, x, idx_flat, scatter_idx):
+        ctx.save_for_backward(scatter_idx)
         ctx.rows = x.shape[1]
         U = x.shape[2]
         return torch.gather(
@@ -185,11 +190,11 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        (idx_flat,) = ctx.saved_tensors
+        (scatter_idx,) = ctx.saved_tensors
         grad_x = _scatter.scatter_add_rows(
-            idx_flat, grad_out.to(torch.float32).contiguous(), ctx.rows
+            scatter_idx, grad_out.to(torch.float32).contiguous(), ctx.rows
         )
-        return grad_x, None
+        return grad_x, None, None
 
 
 def knn_gather(
@@ -202,7 +207,10 @@ def knn_gather(
     if N != _N:
         raise ValueError("x and idx must have same batch dimension.")
     lengths = _lengths(lengths, N, M, x.device)
-    x_out = _Gather.apply(x, idx.reshape(N, L * K).to(torch.int64))
-    x_out = x_out.reshape(N, L, K, U)
     mask = torch.arange(K, device=x.device)[None, None, :] < lengths[:, None, None]
+    idx = idx.to(torch.int64)
+    x_out = _Gather.apply(
+        x, idx.reshape(N, L * K), torch.where(mask, idx, -1).reshape(N, L * K)
+    )
+    x_out = x_out.reshape(N, L, K, U)
     return torch.where(mask[..., None], x_out, 0.0)

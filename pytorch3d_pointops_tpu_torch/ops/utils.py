@@ -33,11 +33,12 @@ def masked_gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("idx format is not supported %s" % repr(tuple(idx.shape)))
     N, _, D = points.shape
     mask = idx == -1
-    # Masked slots gather row 0; their gradient is 0 after the where below,
-    # so the backward adds exact zeros there.
-    safe_idx = torch.where(mask, 0, idx).to(torch.int64).reshape(N, -1)
-    gathered = _Gather.apply(points, safe_idx).reshape(*idx.shape, D)
-    return torch.where(mask[..., None], 0.0, gathered)
+    # Masked slots gather row 0 and are zeroed by the where below; the
+    # backward skips them (index -1) rather than adding zeros into row 0.
+    idx = idx.to(torch.int64)
+    safe_idx = torch.where(mask, 0, idx).reshape(N, -1)
+    gathered = _Gather.apply(points, safe_idx, idx.reshape(N, -1))
+    return torch.where(mask[..., None], 0.0, gathered.reshape(*idx.shape, D))
 
 
 def wmean(

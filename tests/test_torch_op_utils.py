@@ -54,6 +54,34 @@ def test_masked_gather_backward_is_bit_equal_run_to_run():
     assert torch.equal(grads[0], grads[1])
 
 
+def test_masked_gather_backward_skips_padded_slots(monkeypatch):
+    """A query whose slots are all -1 beside a real neighbour at row 0: the
+    gradient is jax.grad's, and the backward scatter skips the padded slots
+    (index -1) instead of summing their zeros into row 0."""
+    from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
+
+    rng = np.random.default_rng(6)
+    pts = rng.normal(size=(2, 5, 3)).astype(np.float32)
+    idx = np.array([[[-1, -1, -1, -1], [0, 3, -1, -1], [0, 0, 4, -1]],
+                    [[-1, -1, -1, -1], [-1, -1, -1, -1], [2, 0, -1, -1]]])
+    w = rng.normal(size=(2, 3, 4, 3)).astype(np.float32)
+    jidx = jnp.asarray(idx.astype(np.int32))
+    gref = jax.grad(lambda p: jnp.sum(w * jax_masked_gather(p, jidx)))(jnp.asarray(pts))
+    seen = []
+
+    def spy(i, c, P2):
+        seen.append(i.clone())
+        return ks.scatter_add_plain(i, c, P2)
+
+    monkeypatch.setattr(ks, "scatter_add_rows", spy)
+    tp = _t(pts, requires_grad=True)
+    (ppt.masked_gather(tp, _t(idx)) * _t(w)).sum().backward()
+    np.testing.assert_allclose(tp.grad.numpy(), np.asarray(gref), rtol=TOL, atol=TOL)
+    (scattered,) = seen
+    assert torch.equal(scattered, _t(idx).reshape(2, -1))
+    assert int((scattered == 0).sum()) == 4  # the real row-0 neighbours only
+
+
 def test_masked_gather_errors():
     pts = torch.zeros((2, 5, 3))
     with pytest.raises(ValueError):

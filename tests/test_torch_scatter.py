@@ -1,6 +1,7 @@
 """The PyTorch port's deterministic scatter (kernels/scatter.py) against the
 JAX package's scatter dispatcher and both of its Pallas scatter kernels, run
-in interpret mode at tiny sizes, on the CPU."""
+in interpret mode at tiny sizes, on the CPU; and the radix sort's digit
+logic (radix_plan_plain) against the stable argsort it replaces."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -86,3 +87,53 @@ def test_scatter_launches_or_raises():
         ks._launch(torch.zeros((1, 4), dtype=torch.int64), torch.zeros((1, 4, 3)), 5)
     with pytest.raises(ValueError):
         ks.scatter_add_k1(torch.zeros((1, 4), dtype=torch.int64), torch.zeros((1, 5, 3)), 5)
+
+
+def _hub_entries(seed, N, E, P2, skip_all):
+    """Half the entries on 16 targets spread over [0, P2) (long runs of equal
+    keys in every digit), the rest uniform over [-1, P2)."""
+    rng = np.random.default_rng(seed)
+    if skip_all:
+        return torch.full((N, E), -1, dtype=torch.int64)
+    hubs = rng.integers(0, P2, size=16)
+    idx = np.where(rng.uniform(size=(N, E)) < 0.5, rng.choice(hubs, size=(N, E)),
+                   rng.integers(-1, P2, size=(N, E)))
+    return torch.tensor(idx, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("N,E,P2,passes,skip_all", [
+    (3, 301, 50, 1, False),          # N > 1, skipped entries
+    (2, 1, 7, 1, False),             # E = 1
+    (2, 40, 9, 1, True),             # every entry skipped
+    (1, 700, 2**11 - 1, 1, False),   # N * P2 = 2^11 - 1: one 11-bit pass
+    (2, 350, 2**10, 2, False),       # N * P2 = 2^11: two passes
+    (1, 500, 2**22 - 1, 2, False),   # N * P2 = 2^22 - 1: two 11-bit passes
+    (2, 300, 2**21, 3, False),       # N * P2 = 2^22: three passes
+])
+def test_radix_plan_matches_segment_plan(N, E, P2, passes, skip_all):
+    """The kernel's flat keys, digit widths and passes, each a stable
+    counting sort, give exactly the stable argsort's keys and order."""
+    assert ks.radix_digits(N, E, P2)[0] == passes
+    idx = _hub_entries(N * E + P2, N, E, P2, skip_all)
+    keys, order = ks.radix_plan_plain(idx, P2)
+    ref_keys, ref_order = ks.segment_plan(idx, P2)
+    assert torch.equal(keys, ref_keys)
+    assert torch.equal(order, ref_order)
+    assert torch.equal(ks.sort_plan(idx, P2)[1], ref_order)
+
+
+def test_scatter_past_int31_raises_on_any_device():
+    """N * P2 + 1 buckets or N * E entries past 2^31 - 1 do not fit the
+    kernel's 32-bit keys: the wrappers raise before any launch."""
+    small = torch.zeros((2, 4), dtype=torch.int64, device="meta")
+    wide = torch.zeros((2, 2**30), dtype=torch.int64, device="meta")
+    for idx, P2 in ((small, 2**30), (wide, 8)):
+        contrib = torch.zeros((*idx.shape, 3), device="meta")
+        for fn in (ks.scatter_add_rows, ks.scatter_add_k1):
+            with pytest.raises(ValueError, match="2\\^31"):
+                fn(idx, contrib, P2)
+        with pytest.raises(ValueError, match="2\\^31"):
+            ks.sort_plan(idx, P2)
+    assert ks.radix_digits(1, 1, 2**31 - 2) == (3, 11)
+    with pytest.raises(ValueError):
+        ks.radix_digits(1, 1, 2**31 - 1)

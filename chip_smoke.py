@@ -6,10 +6,14 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
     python3 chip_smoke.py [--seed 0]
 
 Phase 1 builds the CUDA kernels from ``pytorch3d_pointops_tpu_torch/csrc``
-(five sources, one ``nvcc`` each, in parallel) into ``build/`` and prints
-the card's name and power limit. Phase 2 holds every kernel against its
-plain PyTorch twin on the card: ragged lengths, fully masked clouds, norms
-1 and 2, D in {3, 16}, K in {1, 8, 16, 64, 100} (KNN) and {1, 32, 100, 500}
+(five sources, one ``nvcc`` each, in parallel) into ``build/``, prints the
+registers and spills of every KNN kernel instance (and fails if one at D=3
+spills), and prints the card's name and power limit. Phase 2 holds every
+kernel against its plain PyTorch twin on the card: ragged lengths, fully
+masked clouds, norms 1 and 2, D in {3, 16}, K in {1, 8, 16, 64, 100} (KNN,
+distances bit-equal, under the default launch plan and, at sizes that are
+no multiple of a block, tile or group, under every plan; then a 20,000 x
+20,000 cloud with distance-0 ties under every plan) and {1, 32, 100, 500}
 (ball query), points on a 1/8 grid so that ties and ball boundaries are
 real, every FPS entry point with per-cloud K (K past the length and past the
 number of distinct points), explicit starts and an empty cloud, and the
@@ -25,7 +29,7 @@ set to 0 just before and read just after:
   points (ragged 9,000-10,000) with normals and colors, mean/mean, five SGD
   steps of forward and backward; config 1: ``knn_points`` on 2 clouds of
   1000/800 points, K=8; north star: ``knn_points`` on 100k x 100k points,
-  K=16; both forward and backward;
+  K=16; both forward and backward (the KNN launch plans are printed);
 * config 2 (PointNet++ grouping): ``sample_farthest_points`` (K=512) then
   ``ball_query`` (K=32, r=0.2) on 32 clouds of up to 4,096 points (ragged
   3,500-4,096, uniform in the unit ball), and a loss on the grouped local
@@ -55,6 +59,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -149,6 +154,24 @@ def grid_points(rng, shape):
     return rng.integers(-4, 5, size=shape).astype(np.float32) / 8.0
 
 
+def knn_instances(log: str) -> dict:
+    """{(KB, DIM, NORM, Q, chained): (registers, spill store bytes)} of each
+    ``knn_topk_kernel`` instance in ``nvcc -Xptxas -v`` output."""
+    out, key = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*knn_topk_kernelILi(\d+)ELi(\d+)"
+                      r"ELi(\d+)ELi(\d+)ELb([01])E", ln)
+        if m:
+            key = tuple(int(g) for g in m.groups())
+            out[key] = [0, 0]
+        elif key and "bytes spill stores" in ln:
+            out[key][1] = int(ln.split("bytes spill stores")[0].split(",")[-1])
+        elif key and "Used" in ln and "registers" in ln:
+            out[key][0] = int(ln.split("Used")[1].split()[0])
+            key = None
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -189,6 +212,20 @@ def main() -> int:
                   for ln in log.splitlines() if "bytes spill stores" in ln]
         print(f"  {name}: {len(regs)} kernels, max {max(regs, default=0)} "
               f"registers, {sum(spills)} bytes of spill stores")
+    knn_log = os.path.join(_build.BUILD_DIR, "knn.ptxas.log")
+    if os.path.exists(knn_log):
+        with open(knn_log) as f:
+            instances = knn_instances(f.read())
+        by_dim = {}
+        for key, (regs, spill) in sorted(instances.items()):
+            by_dim.setdefault(key[1:3], []).append(
+                f"KB{key[0]}{'c' if key[4] else ''}/Q{key[3]}:{regs}r"
+                f"{f'+{spill}s' if spill else ''}")
+        for (kdim, knorm), items in sorted(by_dim.items()):
+            print(f"  knn_topk_kernel DIM={kdim} norm={knorm} (registers, spill "
+                  f"bytes): {' '.join(items)}")
+        spilled = [k for k, (_, s) in instances.items() if k[1] == 3 and s]
+        require(instances and not spilled, f"knn D=3 instances spill: {spilled}")
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {gpu_line()}")
 
     stats = {k: {"err": 0.0} for k in ("knn", "chamfer", "rows", "k1", "ball",
@@ -211,10 +248,29 @@ def main() -> int:
                 torch.cuda.synchronize()
                 dk, ik = _apply_pad_conventions(dk, ik, lengths1, lengths2, K, 700)
                 dp, ip = _apply_pad_conventions(dp, ip, lengths1, lengths2, K, 700)
-                err = (dk - dp).abs().max().item()
-                note_err("knn", err)
-                require(err <= TOL, f"knn D={D} norm={norm} K={K}: err {err}")
+                note_err("knn", (dk - dp).abs().max().item())
+                require(torch.equal(dk, dp), f"knn D={D} norm={norm} K={K}: dists")
                 require(torch.equal(ik, ip), f"knn D={D} norm={norm} K={K}: idx")
+            # Every launch plan at shapes that cross the kernel's boundaries:
+            # P1 = 1,337 is no multiple of the queries a block covers, P2 =
+            # 2,061 none of a tile or a group, and lengths2 ends mid-tile
+            # (1,030 and 519: 2 and 7 past a tile of 512 or 256, mid-group)
+            # and at 0.
+            bp1 = T(grid_points(rng, (4, 1337, D)))
+            bp2 = T(grid_points(rng, (4, 2061, D)))
+            bl1 = T(np.array([1337, 1337, 1000, 1337]), torch.int64)
+            bl2 = T(np.array([2061, 1030, 519, 0]), torch.int64)
+            for K in (1, 8, 16, 64, 100):
+                dp, ip = _apply_pad_conventions(*kk.knn_topk_plain(bp1, bp2, bl2, K, norm),
+                                                bl1, bl2, K, 1337)
+                for plan in kk.card_plans(bp1, bp2, K, norm)[1]:
+                    dk, ik = _apply_pad_conventions(
+                        *kk.knn_topk_cuda(bp1, bp2, bl2, K, norm, _plan=plan),
+                        bl1, bl2, K, 1337)
+                    what = f"knn boundaries D={D} norm={norm} K={K} {kk.plan_name(plan)}"
+                    note_err("knn", (dk - dp).abs().max().item())
+                    require(torch.equal(dk, dp), f"{what}: dists")
+                    require(torch.equal(ik, ip), f"{what}: idx")
             # Two sides of 2,500 points span several blocks in each direction.
             for x, y, l1, l2 in (
                 (p1, p2, lengths1, lengths2),
@@ -234,6 +290,27 @@ def main() -> int:
                     require(err <= TOL, f"chamfer_nn D={D} norm={norm}: err {err}")
                 require(torch.equal(outk[1], outp[1]) and torch.equal(outk[3], outp[3]),
                         f"chamfer_nn D={D} norm={norm}: idx")
+    # Distance-0 ties at scale: 20,000 Gaussian queries against 20,000
+    # points, K=16, where every fifth query is a copy of a candidate and a
+    # tenth of the candidates copy another, under every plan (each Q, block
+    # size and tile) the kernel takes at this shape.
+    tie2 = rng.normal(size=(1, 20000, 3)).astype(np.float32)
+    dup = rng.choice(20000, size=2000, replace=False)
+    tie2[0, dup] = tie2[0, rng.integers(0, 20000, size=2000)]
+    tie1 = rng.normal(size=(1, 20000, 3)).astype(np.float32)
+    tie1[0, ::5] = tie2[0, rng.integers(0, 20000, size=4000)]
+    tie1, tie2 = T(tie1), T(tie2)
+    tie_len = T(np.array([20000]), torch.int64)
+    dp, ip = kk.knn_topk_plain(tie1, tie2, tie_len, 16, 2)
+    require(int((dp[..., 0] == 0).sum()) >= 4000, "tie cloud: too few distance-0 queries")
+    chosen, plans = kk.card_plans(tie1, tie2, 16, 2)
+    for plan in plans:
+        dk, ik = kk.knn_topk_cuda(tie1, tie2, tie_len, 16, 2, _plan=plan)
+        require(torch.equal(dk, dp) and torch.equal(ik, ip),
+                f"knn tie cloud {kk.plan_name(plan)}: differs from plain")
+    print(f"  knn tie cloud 20,000 x 20,000 K=16: bit-equal to plain under all "
+          f"{len(plans)} plans (Q {sorted({p.queries for p in plans})}); the "
+          f"wrapper picks {kk.plan_name(chosen)}")
     # The scatter: its radix sort against the stable argsort at one, two and
     # three passes (N * P2 of 2,000, 100,000 and 5,000,000 buckets), on
     # uniform targets and on targets where half the entries share 16 rows;
@@ -401,6 +478,9 @@ def main() -> int:
     require(all(np.isfinite(losses)) and losses[-1] < losses[0], "loss did not fall")
     print(f"  config 1 knn K=8 fwd+bwd median {c1_ms:.3f} ms")
     print(f"  north-star knn 100k x 100k K=16 fwd+bwd median {ns_ms:.3f} ms")
+    print("  knn launch plans: config 1 "
+          f"{kk.plan_name(kk.card_plans(pc1.points_padded(), pc2.points_padded(), 8, 2)[0])}"
+          f", north star {kk.plan_name(kk.card_plans(ns_p1, ns_p2, 16, 2)[0])}")
 
     @contextlib.contextmanager
     def plain_path():

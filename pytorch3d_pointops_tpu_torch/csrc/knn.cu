@@ -4,23 +4,42 @@
 // (kernel body _knn_kernel), including its any-K contract that the TPU side
 // serves by chaining 64-key rounds (_knn_forward_pallas_bigk).
 //
-// Bound on the card: operations. A query against P2 candidates costs 3*D
-// float32 operations per candidate (subtract, square or abs, accumulate)
-// while it reads only the candidate coordinates, which every thread of a
-// block shares. Design: one thread per query with its coordinates in
-// registers (D <= 8), the block stages (tile, D) candidate tiles in shared
-// memory with coalesced loads, and every thread reads the same shared word
-// at once (a broadcast, no bank conflicts). The top-K state is a sorted
-// (value, index) array in registers, templated on K buckets so that the
-// insertion unrolls fully and never spills to local memory; a candidate
-// costs one compare against the current kth value unless it wins.
+// Bound on the card: instruction issue. A pair costs 3*D float32 operations
+// (subtract, square or abs, accumulate), and since the distances must be
+// bit-equal to the plain PyTorch version they are built with -fmad=false, so
+// every one issues on its own: at D=3, 8 a pair (the first term needs no
+// add). Design, all of it aimed at issuing little more than those 8:
 //
-// Order: candidates are scanned in ascending index and inserted only when
-// strictly smaller than the kth value, behind entries of equal value, so
-// the state is in lexicographic (value, index) order: on ties the lowest
-// index wins. K > 64 runs ceil(K/64) rounds of the 64-bucket kernel; round r
-// admits only candidates lexicographically above round r-1's last entry
-// (lb_d, lb_i), so the rounds concatenate to the global order.
+// * Q queries a thread (template, 1 or 2), their coordinates in
+//   registers (D <= 8). A block covers Q * blockDim.x consecutive queries;
+//   each staged candidate is loaded from shared memory once per thread and
+//   feeds Q independent distance chains.
+// * The block stages tiles of candidates in shared memory, padded to 4 (D=3)
+//   or 8 (D<=8) floats so that one broadcast 16-byte load gives a D=3
+//   candidate. Tiles are double-buffered with cp.async: tile t+1 is in
+//   flight while tile t is scanned, and one block barrier per tile both
+//   publishes tile t and frees the buffer that tile t+1 overwrites. Where
+//   registers allow, a thread also loads the next group of candidates
+//   while it computes this one.
+// * A group of U = 16/Q candidates is scanned without branching: the Q*U
+//   distances stay in registers and each query keeps one "anything below my
+//   kth" flag. One __any_sync per group decides whether the warp looks at
+//   the group at all; only then does each flagged query append its
+//   candidates below its kth to a pending list in shared memory, which is
+//   inserted in ascending j at the end of the tile (see Scan). After the
+//   first tiles the vote rarely fires, and a warp's insertions cost its
+//   longest list, not the union over time of its lanes' insertions.
+// * The top-K state is a sorted (value, index) array per query in
+//   registers, templated on K buckets so that the insertion unrolls fully;
+//   Q = 2 only up to KB = 16, so that nothing spills. The wrapper (kernels/knn.py) picks Q, threads and tile from the
+//   shapes and the card's resident blocks (knn_resident_blocks).
+//
+// Order: candidates are admitted in ascending index, only when strictly
+// smaller than the kth value, behind entries of equal value, so the state is
+// in lexicographic (value, index) order: on ties the lowest index wins. K >
+// 64 runs ceil(K/64) rounds of the 64-bucket kernel; round r admits only
+// candidates lexicographically above round r-1's last entry (lb_d, lb_i), so
+// the rounds concatenate to the global order.
 //
 // Arithmetic: each axis term is rounded on its own and summed in order
 // d = 0..D-1 (__fsub_rn/__fmul_rn/__fadd_rn, never contracted to FMA), so
@@ -32,9 +51,14 @@
 
 namespace {
 
-constexpr int kThreads = 128;       // queries per block
-constexpr int kTileFloats = 12288;  // 48 KB of staged candidate coordinates
-constexpr int kMaxTile = 512;       // candidates per staged tile
+constexpr int kMaxThreads = 256;
+constexpr int kGroupSlots = 16;  // Q * U: distances a thread holds per vote
+constexpr size_t kDefaultSmem = 48 * 1024;
+
+// Floats a staged candidate takes: padded to a 16-byte multiple for D <= 8.
+__host__ __device__ inline int stride_of(int dim, int D) {
+  return dim == 3 ? 4 : (dim == 8 ? 8 : D);
+}
 
 template <int NORM>
 __device__ __forceinline__ float axis_term(float a, float b) {
@@ -42,144 +66,398 @@ __device__ __forceinline__ float axis_term(float a, float b) {
   return NORM == 2 ? __fmul_rn(diff, diff) : fabsf(diff);
 }
 
-// DIM > 0: the query lives in registers and loops unroll to DIM; the runtime
-// D must be <= DIM (shorter D is predicated). DIM == 0: any D, read from
-// global memory (L1-resident after the first tile).
-template <int KB, int DIM, int NORM>
-__global__ void __launch_bounds__(kThreads) knn_topk_kernel(
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Issue the copies of cnt candidates (cnt * D floats at src) into dst at
+// stride S; each thread commits one group of copies.
+template <int DIM>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           int cnt, int D, int S) {
+  const int total = cnt * D;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int c = DIM == 3 ? e / 3 : e / D;
+    cp_async_f32(dst + c * S + (e - c * (DIM == 3 ? 3 : D)), src + e);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// A staged candidate: its coordinates in registers (DIM > 0) or a pointer
+// into shared memory (DIM == 0, any D).
+template <int DIM>
+struct Cand {
+  float v[DIM == 3 ? 4 : (DIM == 8 ? 8 : 1)];
+  const float* p;
+};
+
+template <int DIM>
+__device__ __forceinline__ Cand<DIM> load_cand(const float* c) {
+  Cand<DIM> r;
+  if constexpr (DIM == 0) {
+    r.p = c;
+  } else {
+#pragma unroll
+    for (int h = 0; h < DIM; h += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(c + h);
+      r.v[h] = a.x;
+      r.v[h + 1] = a.y;
+      r.v[h + 2] = a.z;
+      r.v[h + 3] = a.w;
+    }
+  }
+  return r;
+}
+
+// Sum of the axis terms in order d = 0..D-1, starting from the first term
+// (0 + term0 == term0 exactly: a term is never -0).
+template <int DIM, int NORM>
+__device__ __forceinline__ float distance(const float* q, const Cand<DIM>& c,
+                                          int D) {
+  if constexpr (DIM == 0) {
+    float d = axis_term<NORM>(q[0], c.p[0]);
+    for (int k = 1; k < D; ++k) d = __fadd_rn(d, axis_term<NORM>(q[k], c.p[k]));
+    return d;
+  } else {
+    float d = axis_term<NORM>(q[0], c.v[0]);
+#pragma unroll
+    for (int k = 1; k < DIM; ++k) {
+      if (DIM == 3 || k < D) d = __fadd_rn(d, axis_term<NORM>(q[k], c.v[k]));
+    }
+    return d;
+  }
+}
+
+// Insert (dist, j) if it is below the kth value (and, for a chained round,
+// lexicographically above the previous round's last entry): behind every
+// entry <= dist. Slot s takes slot s-1's entry when that entry is larger,
+// else the candidate when slot s held a larger value; walking s downward
+// reads slots not yet written.
+template <int KB, bool CHAINED>
+__device__ __forceinline__ void admit(float (&bd)[KB], int (&bi)[KB],
+                                      float dist, int j, float lbd, int lbi) {
+  if (!(dist < bd[KB - 1])) return;
+  if (CHAINED && !(dist > lbd || (dist == lbd && j > lbi))) return;
+#pragma unroll
+  for (int s = KB - 1; s > 0; --s) {
+    if (bd[s - 1] > dist) {
+      bd[s] = bd[s - 1];
+      bi[s] = bi[s - 1];
+    } else if (bd[s] > dist) {
+      bd[s] = dist;
+      bi[s] = j;
+    }
+  }
+  if (bd[0] > dist) {
+    bd[0] = dist;
+    bi[0] = j;
+  }
+}
+
+// One thread's queries and their top-K state, and the scan of one staged
+// tile. DIM > 0: the queries live in registers and loops unroll to DIM; the
+// runtime D must be <= DIM (shorter D is predicated). DIM == 0: any D, Q = 1,
+// the query read from global memory (L1-resident after the first tile).
+//
+// A group whose vote fires does not insert at once: each flagged query
+// appends the group's candidates below its kth to its pending list in
+// shared memory (tile positions, ascending). The lists are drained into the
+// top-K (in list order, each candidate checked again against the kth it
+// meets then) when one may overflow and at the end of the tile. A warp then
+// pays for the longest list of its lanes, not for every group in which any
+// lane had a candidate; checking each candidate against the kth as it was
+// when the list was filled admits a superset of what an insertion in
+// ascending j admits, so the drained state is the same.
+template <int KB, int DIM, int NORM, int Q, bool CHAINED>
+struct Scan {
+  static constexpr int U = kGroupSlots / Q;  // candidates a group
+  static constexpr int C = 2 * U;            // pending list capacity
+  static constexpr int QD = DIM > 0 ? DIM : 1;
+
+  float qv[Q][QD];
+  const float* qp[Q];
+  float bd[Q][KB];
+  int bi[Q][KB];
+  float lbd[Q];
+  int lbi[Q];
+  int npend[Q];
+  int* pend;  // (Q, C, blockDim.x) tile positions
+  int D, S;
+
+  __device__ __forceinline__ int* slot(int qq, int e) const {
+    return pend + (qq * C + e) * blockDim.x + threadIdx.x;
+  }
+
+  __device__ __forceinline__ float dist(int qq, const Cand<DIM>& c) const {
+    return distance<DIM, NORM>(DIM > 0 ? qv[qq] : qp[qq], c, D);
+  }
+
+  // Load candidates g..g+U-1 of the tile; TAIL: the tile's last, partial
+  // group (cnt - g < U), whose loads stay inside the tile.
+  template <bool TAIL>
+  __device__ __forceinline__ void load_group(Cand<DIM> (&c)[U], const float* cur,
+                                             int g, int cnt) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      c[u] = load_cand<DIM>(cur + (TAIL ? min(g + u, cnt - 1) : g + u) * S);
+    }
+  }
+
+  // Distances of the group's candidates for every query, one vote, and (if
+  // it fires) the pending appends; TAIL appends only the real candidates.
+  // Returns whether the vote fired (warp-uniform).
+  template <bool TAIL>
+  __device__ __forceinline__ bool group(const Cand<DIM> (&c)[U], int g, int cnt) {
+    float dg[Q][U];
+    bool hit[Q];
+#pragma unroll
+    for (int qq = 0; qq < Q; ++qq) hit[qq] = false;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int qq = 0; qq < Q; ++qq) {
+        const float d = dist(qq, c[u]);
+        dg[qq][u] = d;
+        hit[qq] |= d < bd[qq][KB - 1] && (!CHAINED || d >= lbd[qq]);
+      }
+    }
+    bool any = false;
+#pragma unroll
+    for (int qq = 0; qq < Q; ++qq) any |= hit[qq];
+    if (!__any_sync(0xffffffffu, any)) return false;
+#pragma unroll
+    for (int qq = 0; qq < Q; ++qq) {
+      if (!hit[qq]) continue;
+      const float kth = bd[qq][KB - 1];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if ((!TAIL || g + u < cnt) && dg[qq][u] < kth &&
+            (!CHAINED || dg[qq][u] >= lbd[qq])) {
+          *slot(qq, npend[qq]++) = g + u;
+        }
+      }
+    }
+    return true;
+  }
+
+  // Insert every pending candidate of tile `cur` (whose first index is t0)
+  // in list order, and empty the lists.
+  __device__ __forceinline__ void drain(const float* cur, int t0) {
+#pragma unroll
+    for (int qq = 0; qq < Q; ++qq) {
+      for (int e = 0; e < npend[qq]; ++e) {
+        const int c = *slot(qq, e);
+        admit<KB, CHAINED>(bd[qq], bi[qq], dist(qq, load_cand<DIM>(cur + c * S)),
+                           t0 + c, lbd[qq], lbi[qq]);
+      }
+      npend[qq] = 0;
+    }
+  }
+
+  // After a vote fired: drain if a list may not take the next group.
+  __device__ __forceinline__ void make_room(const float* cur, int t0) {
+    bool crowded = false;
+#pragma unroll
+    for (int qq = 0; qq < Q; ++qq) crowded |= npend[qq] > C - U;
+    if (__any_sync(0xffffffffu, crowded)) drain(cur, t0);
+  }
+
+  // Every full group keeps room for the next (at most C - U pending after
+  // it); the partial group, if any, fits in that room before the last drain.
+  // PREFETCH (D=3) loads the next group while this one is computed, 4 * U
+  // more registers: on the H100 it paid at Q = 2 and at KB = 64, and at
+  // Q = 1 below KB = 64 its registers cost more occupancy than it hid
+  // (tune_knn.py). Its last load reads up to U candidates past the tile,
+  // which stay inside the block's shared memory (the other tile or the
+  // pending lists) and are never used.
+  __device__ __forceinline__ void scan_tile(const float* cur, int t0, int cnt) {
+    constexpr bool PREFETCH = DIM == 3 && (Q == 2 || KB == 64);
+    int g = 0;
+    if constexpr (PREFETCH) {
+      if (U <= cnt) {
+        Cand<DIM> next[U];
+        load_group<false>(next, cur, 0, cnt);
+        for (; g + U <= cnt; g += U) {
+          Cand<DIM> c[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) c[u] = next[u];
+          load_group<false>(next, cur, g + U, cnt);
+          if (group<false>(c, g, cnt)) make_room(cur, t0);
+        }
+      }
+    } else {
+      for (; g + U <= cnt; g += U) {
+        Cand<DIM> c[U];
+        load_group<false>(c, cur, g, cnt);
+        if (group<false>(c, g, cnt)) make_room(cur, t0);
+      }
+    }
+    if (g < cnt) {
+      Cand<DIM> c[U];
+      load_group<true>(c, cur, g, cnt);
+      group<true>(c, g, cnt);
+    }
+    drain(cur, t0);
+  }
+};
+
+// Thread t of block b owns queries b * Q * blockDim.x + qq * blockDim.x + t.
+// Shared memory: two tiles of (tile, S) floats, then the pending lists.
+template <int KB, int DIM, int NORM, int Q, bool CHAINED>
+__global__ void __launch_bounds__(kMaxThreads) knn_topk_kernel(
     const float* __restrict__ p1, const float* __restrict__ p2,
     const int64_t* __restrict__ lengths2, const float* __restrict__ lb_d,
     const int64_t* __restrict__ lb_i, int P1, int P2, int D, int K, int tile,
     float* __restrict__ out_d, int64_t* __restrict__ out_i) {
-  extern __shared__ float tile_s[];  // (tile, D) candidate coordinates
+  using State = Scan<KB, DIM, NORM, Q, CHAINED>;
+  extern __shared__ float4 smem_f4[];
+  float* const stage = reinterpret_cast<float*>(smem_f4);
+  const int S = stride_of(DIM, D);
   const int n = blockIdx.y;
-  const int q = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = q < P1;
-  const int64_t row = (int64_t)n * P1 + (active ? q : 0);
-  const float* qp = p1 + row * D;
+  const int first = blockIdx.x * Q * blockDim.x + threadIdx.x;
 
-  float qr[DIM > 0 ? DIM : 1];
+  // Rows past P1 compute on row 0 but never admit: their kth is -inf.
+  State st;
+  st.pend = reinterpret_cast<int*>(stage + 2 * tile * S);
+  st.D = D;
+  st.S = S;
 #pragma unroll
-  for (int d = 0; d < (DIM > 0 ? DIM : 1); ++d) {
-    qr[d] = (DIM > 0 && d < D) ? qp[d] : 0.f;
-  }
-
-  float bd[KB];
-  int bi[KB];
+  for (int qq = 0; qq < Q; ++qq) {
+    const int q = first + qq * blockDim.x;
+    const bool active = q < P1;
+    const int64_t row = (int64_t)n * P1 + (active ? q : 0);
+    st.qp[qq] = p1 + row * D;
 #pragma unroll
-  for (int s = 0; s < KB; ++s) {
-    bd[s] = INFINITY;
-    bi[s] = 0;
-  }
-
-  const bool chained = lb_d != nullptr;
-  float lbd = 0.f;
-  int lbi = 0;
-  if (chained && active) {
-    lbd = lb_d[row];
-    lbi = (int)lb_i[row];
-  }
-
-  int64_t len2 = lengths2[n];
-  len2 = len2 < 0 ? 0 : (len2 > P2 ? P2 : len2);
-  const float* p2n = p2 + (int64_t)n * P2 * D;
-
-  for (int t0 = 0; t0 < len2; t0 += tile) {
-    const int cnt = (int)min((int64_t)tile, len2 - t0);
-    __syncthreads();  // the previous tile is no longer read
-    const float* src = p2n + (int64_t)t0 * D;
-    for (int e = threadIdx.x; e < cnt * D; e += kThreads) tile_s[e] = src[e];
-    __syncthreads();
-    if (!active) continue;
-    for (int jj = 0; jj < cnt; ++jj) {
-      const float* c = tile_s + jj * D;
-      float dist = 0.f;
-      if (DIM > 0) {
-#pragma unroll
-        for (int d = 0; d < (DIM > 0 ? DIM : 1); ++d) {
-          if (d < D) dist = __fadd_rn(dist, axis_term<NORM>(qr[d], c[d]));
-        }
-      } else {
-        for (int d = 0; d < D; ++d) {
-          dist = __fadd_rn(dist, axis_term<NORM>(qp[d], c[d]));
-        }
-      }
-      if (!(dist < bd[KB - 1])) continue;
-      const int j = t0 + jj;
-      if (chained && !(dist > lbd || (dist == lbd && j > lbi))) continue;
-      // Insert behind every entry <= dist: slot s takes slot s-1's entry
-      // when that entry is larger, else the candidate when slot s held a
-      // larger value. Walking s downward reads slots not yet written.
-#pragma unroll
-      for (int s = KB - 1; s > 0; --s) {
-        if (bd[s - 1] > dist) {
-          bd[s] = bd[s - 1];
-          bi[s] = bi[s - 1];
-        } else if (bd[s] > dist) {
-          bd[s] = dist;
-          bi[s] = j;
-        }
-      }
-      if (bd[0] > dist) {
-        bd[0] = dist;
-        bi[0] = j;
-      }
+    for (int d = 0; d < State::QD; ++d) {
+      st.qv[qq][d] = (DIM == 3 || (DIM > 0 && d < D)) ? st.qp[qq][d] : 0.f;
     }
+#pragma unroll
+    for (int s = 0; s < KB; ++s) {
+      st.bd[qq][s] = active ? INFINITY : -INFINITY;
+      st.bi[qq][s] = 0;
+    }
+    st.lbd[qq] = 0.f;
+    st.lbi[qq] = 0;
+    if (CHAINED && active) {
+      st.lbd[qq] = lb_d[row];
+      st.lbi[qq] = (int)lb_i[row];
+    }
+    st.npend[qq] = 0;
   }
 
-  if (!active) return;
-  float* od = out_d + row * K;
-  int64_t* oi = out_i + row * K;
+  int64_t len64 = lengths2[n];
+  const int len2 = (int)(len64 < 0 ? 0 : (len64 > P2 ? P2 : len64));
+  const float* p2n = p2 + (int64_t)n * P2 * D;
+  const int tiles = (len2 + tile - 1) / tile;
+  if (tiles > 0) stage_tile<DIM>(stage, p2n, min(tile, len2), D, S);
+
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t is staged; no thread still reads tile t-1
+    const int t0 = t * tile;
+    if (t + 1 < tiles) {
+      const int t1 = t0 + tile;
+      stage_tile<DIM>(stage + ((t + 1) & 1) * tile * S, p2n + (int64_t)t1 * D,
+                      min(tile, len2 - t1), D, S);
+    }
+    st.scan_tile(stage + (t & 1) * tile * S, t0, min(tile, len2 - t0));
+  }
+
 #pragma unroll
-  for (int s = 0; s < KB; ++s) {
-    if (s < K) {
-      od[s] = bd[s];
-      oi[s] = bi[s];
+  for (int qq = 0; qq < Q; ++qq) {
+    const int q = first + qq * blockDim.x;
+    if (q >= P1) continue;
+    const int64_t row = (int64_t)n * P1 + q;
+    float* od = out_d + row * K;
+    int64_t* oi = out_i + row * K;
+#pragma unroll
+    for (int s = 0; s < KB; ++s) {
+      if (s < K) {
+        od[s] = st.bd[qq][s];
+        oi[s] = st.bi[qq][s];
+      }
     }
   }
 }
 
-template <int KB, int DIM, int NORM>
-cudaError_t launch(const float* p1, const float* p2, const int64_t* lengths2,
-                   const float* lb_d, const int64_t* lb_i, int N, int P1,
-                   int P2, int D, int K, float* out_d, int64_t* out_i,
-                   cudaStream_t stream) {
-  int tile = kTileFloats / D;
-  tile = tile < 1 ? 1 : (tile > kMaxTile ? kMaxTile : tile);
-  const size_t smem = (size_t)tile * D * sizeof(float);
-  const dim3 grid((P1 + kThreads - 1) / kThreads, N);
-  knn_topk_kernel<KB, DIM, NORM><<<grid, kThreads, smem, stream>>>(
-      p1, p2, lengths2, lb_d, lb_i, P1, P2, D, K, tile, out_d, out_i);
+struct Args {
+  const float* p1;
+  const float* p2;
+  const int64_t* lengths2;
+  const float* lb_d;
+  const int64_t* lb_i;
+  int N, P1, P2, D, K;
+  float* out_d;
+  int64_t* out_i;
+};
+
+// Launch one instance, or (resident != null) report how many of its blocks
+// fit on one SM at this block size and tile instead.
+template <int KB, int DIM, int NORM, int Q, bool CHAINED>
+cudaError_t run(const Args& a, int threads, int tile, cudaStream_t stream,
+                int* resident) {
+  auto kernel = knn_topk_kernel<KB, DIM, NORM, Q, CHAINED>;
+  using State = Scan<KB, DIM, NORM, Q, CHAINED>;
+  const size_t smem = (2 * (size_t)tile * stride_of(DIM, a.D) +
+                       (size_t)Q * State::C * threads) * sizeof(float);
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (resident != nullptr) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, kernel,
+                                                         threads, smem);
+  }
+  const dim3 grid((a.P1 + Q * threads - 1) / (Q * threads), a.N);
+  kernel<<<grid, threads, smem, stream>>>(a.p1, a.p2, a.lengths2, a.lb_d,
+                                          a.lb_i, a.P1, a.P2, a.D, a.K, tile,
+                                          a.out_d, a.out_i);
   return cudaGetLastError();
 }
 
+// Q per K bucket: the top-K state is 2 * KB registers a query; Q = 2 up to
+// KB = 16 (Q = 4, and Q = 2 at KB = 32, measured slower on the H100 at every
+// shape of tune_knn.py); the generic-D path takes Q = 1. Chained rounds are
+// 64-key.
+template <int KB, int DIM, int NORM>
+cudaError_t pick_q(const Args& a, int q, int threads, int tile,
+                   cudaStream_t stream, int* resident) {
+  if (a.lb_d != nullptr) {
+    if constexpr (KB == 64) {
+      if (q == 1) return run<64, DIM, NORM, 1, true>(a, threads, tile, stream,
+                                                     resident);
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (q == 1) return run<KB, DIM, NORM, 1, false>(a, threads, tile, stream,
+                                                  resident);
+  if constexpr (DIM > 0 && KB <= 16) {
+    if (q == 2) return run<KB, DIM, NORM, 2, false>(a, threads, tile, stream,
+                                                    resident);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <int KB, int NORM>
-cudaError_t launch_dim(const float* p1, const float* p2,
-                       const int64_t* lengths2, const float* lb_d,
-                       const int64_t* lb_i, int N, int P1, int P2, int D,
-                       int K, float* out_d, int64_t* out_i,
-                       cudaStream_t stream) {
-  if (D == 3) {
-    return launch<KB, 3, NORM>(p1, p2, lengths2, lb_d, lb_i, N, P1, P2, D, K,
-                               out_d, out_i, stream);
-  }
-  if (D <= 8) {
-    return launch<KB, 8, NORM>(p1, p2, lengths2, lb_d, lb_i, N, P1, P2, D, K,
-                               out_d, out_i, stream);
-  }
-  return launch<KB, 0, NORM>(p1, p2, lengths2, lb_d, lb_i, N, P1, P2, D, K,
-                             out_d, out_i, stream);
+cudaError_t pick_dim(const Args& a, int q, int threads, int tile,
+                     cudaStream_t stream, int* resident) {
+  if (a.D == 3) return pick_q<KB, 3, NORM>(a, q, threads, tile, stream, resident);
+  if (a.D <= 8) return pick_q<KB, 8, NORM>(a, q, threads, tile, stream, resident);
+  return pick_q<KB, 0, NORM>(a, q, threads, tile, stream, resident);
 }
 
 template <int NORM>
-cudaError_t launch_k(const float* p1, const float* p2, const int64_t* lengths2,
-                     const float* lb_d, const int64_t* lb_i, int N, int P1,
-                     int P2, int D, int K, float* out_d, int64_t* out_i,
-                     cudaStream_t stream) {
-#define KNN_BUCKET(KB)                                                      \
-  if (K <= KB)                                                              \
-    return launch_dim<KB, NORM>(p1, p2, lengths2, lb_d, lb_i, N, P1, P2, D, \
-                                K, out_d, out_i, stream);
+cudaError_t pick_k(const Args& a, int q, int threads, int tile,
+                   cudaStream_t stream, int* resident) {
+#define KNN_BUCKET(KB) \
+  if (a.K <= KB) return pick_dim<KB, NORM>(a, q, threads, tile, stream, resident);
   KNN_BUCKET(1)
   KNN_BUCKET(2)
   KNN_BUCKET(4)
@@ -191,26 +469,42 @@ cudaError_t launch_k(const float* p1, const float* p2, const int64_t* lengths2,
   return cudaErrorInvalidValue;
 }
 
+cudaError_t dispatch(const Args& a, int norm, int q, int threads, int tile,
+                     cudaStream_t stream, int* resident) {
+  if (a.D < 1 || a.K < 1 || a.K > 64 || a.N > 65535 || tile < 1 ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  if (norm == 2) return pick_k<2>(a, q, threads, tile, stream, resident);
+  if (norm == 1) return pick_k<1>(a, q, threads, tile, stream, resident);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // p1 (N, P1, D), p2 (N, P2, D) float32; lengths2 (N,) int64; lb_d/lb_i
-// (N, P1) or null; out_d/out_i (N, P1, K) with 1 <= K <= 64. Returns the
+// (N, P1) or null (then K <= 64, else K == 64 and q == 1); out_d/out_i
+// (N, P1, K) with 1 <= K <= 64. q queries a thread, threads a block (a
+// multiple of 32, at most 256), tile candidates a staged tile. Returns the
 // launch's cudaError_t.
 extern "C" int knn_topk(const float* p1, const float* p2,
                         const int64_t* lengths2, const float* lb_d,
                         const int64_t* lb_i, int N, int P1, int P2, int D,
-                        int K, int norm, float* out_d, int64_t* out_i,
-                        void* stream) {
+                        int K, int norm, int q, int threads, int tile,
+                        float* out_d, int64_t* out_i, void* stream) {
   if (N <= 0 || P1 <= 0) return cudaSuccess;
-  if (D < 1 || K < 1 || K > 64 || N > 65535) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (norm == 2) {
-    return launch_k<2>(p1, p2, lengths2, lb_d, lb_i, N, P1, P2, D, K, out_d,
-                       out_i, s);
-  }
-  if (norm == 1) {
-    return launch_k<1>(p1, p2, lengths2, lb_d, lb_i, N, P1, P2, D, K, out_d,
-                       out_i, s);
-  }
-  return cudaErrorInvalidValue;
+  const Args a{p1, p2, lengths2, lb_d, lb_i, N, P1, P2, D, K, out_d, out_i};
+  return dispatch(a, norm, q, threads, tile, static_cast<cudaStream_t>(stream),
+                  nullptr);
+}
+
+// How many blocks of the (K, D, norm, q) instance fit on one SM of the
+// current device at this block size and tile (0 if none). Returns a
+// cudaError_t.
+extern "C" int knn_resident_blocks(int K, int D, int norm, int q, int threads,
+                                   int tile, int* blocks) {
+  *blocks = 0;
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, 1, D, K,
+               nullptr, nullptr};
+  return dispatch(a, norm, q, threads, tile, nullptr, blocks);
 }

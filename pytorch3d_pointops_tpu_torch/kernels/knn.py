@@ -12,11 +12,18 @@ conventions (``ops.knn._apply_pad_conventions``).
 
 The kernel replaces ``pytorch3d_pointops_tpu/kernels/knn_pallas.py``
 ``knn_forward_pallas``; the design note is at the top of ``csrc/knn.cu``.
+Each launch takes a ``Plan`` (queries a thread, threads a block, candidates
+a staged tile) that ``_launch_plan`` picks from the shapes, the card's SM
+count and how many blocks of the kernel fit on an SM;
+``python -m pytorch3d_pointops_tpu_torch.tune_knn`` times every feasible
+plan on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -25,6 +32,103 @@ from .. import _build
 # Keys per kernel round; K > ROUND_K chains rounds behind an exclusive
 # (value, index) lower bound, as the TPU kernel does.
 ROUND_K = 64
+
+# Block sizes a plan may take (csrc/knn.cu: multiples of 32, at most 256).
+_THREADS = (32, 64, 128, 256)
+# Distances a thread holds between two votes, Q queries x 16/Q candidates
+# (csrc/knn.cu kGroupSlots); tiles are whole groups.
+_GROUP_SLOTS = 16
+# Shared memory a block stages without opting in (two tiles).
+_SMEM_DEFAULT = 48 * 1024
+
+
+class Plan(NamedTuple):
+    """One launch of ``csrc/knn.cu``: ``queries`` a thread (1 or 2),
+    ``threads`` a block, ``tile`` candidates a staged tile."""
+
+    queries: int
+    threads: int
+    tile: int
+
+
+def plan_name(plan: Plan) -> str:
+    return f"q{plan.queries}/t{plan.threads}/tile{plan.tile}"
+
+
+def _bucket(K: int) -> int:
+    """The kernel's K bucket (1, 2, 4, ..., 64) for one round of K keys."""
+    kb = 1
+    while kb < min(K, ROUND_K):
+        kb *= 2
+    return kb
+
+
+def _max_queries(K: int, D: int) -> int:
+    """Queries a thread may own: two up to the 16-key bucket (the top-K
+    state is 2 * KB registers a query), one above it and at D > 8."""
+    return 2 if D <= 8 and _bucket(K) <= 16 else 1
+
+
+def _tiles(P2: int, D: int) -> tuple[int, ...]:
+    """Tile sizes a plan may stage at D, the default first: candidates
+    padded to 4 floats (D=3) or 8 (D<=8), two tiles in at most 48 KB;
+    never longer than P2 rounded up to whole groups."""
+    if D == 3:
+        sizes = (1024, 512, 256)
+    elif D <= 8:
+        sizes = (512, 256, 128)
+    else:
+        t = max(1, _SMEM_DEFAULT // (2 * 4 * D))
+        sizes = (t - t % _GROUP_SLOTS if t >= _GROUP_SLOTS else t,)
+    cap = -(-max(P2, 1) // _GROUP_SLOTS) * _GROUP_SLOTS
+    return tuple(dict.fromkeys(min(s, cap) for s in sizes))
+
+
+def _blocks(N: int, P1: int, plan: Plan) -> int:
+    return N * -(-P1 // (plan.queries * plan.threads))
+
+
+def _plan_cost(N, P1, D, plan: Plan, sm_count: int, resident: int) -> float:
+    """Modelled issue time of the busiest SM scheduler, in warp instructions
+    per candidate: blocks spread evenly over the SMs, at most ``resident``
+    of them at once; their warps spread evenly over the SM's 4 schedulers;
+    a warp issues 3*D operations per query per candidate, its candidate
+    loads and D/T copies to stage it; a scheduler with one warp at a time
+    issues at 3/4 of its rate. Fitted to ``tune_knn.py``'s times on an
+    H100 80GB HBM3 at 700 W, where the plan it picks came within 10 % of
+    the fastest plan at every shape and K (PERF.md)."""
+    Q, T = plan.queries, plan.threads
+    per_sm = -(-_blocks(N, P1, plan) // sm_count)
+    at_once = max(1, min(per_sm, resident))
+    warps = -(-(per_sm * T // 32) // 4)
+    concurrent = -(-(at_once * T // 32) // 4)
+    loads = -(-D // 4) if D <= 8 else D
+    per_warp = Q * 3 * D + loads + D / T
+    return warps * per_warp / min(1.0, 0.75 * concurrent)
+
+
+def feasible_plans(N, P1, P2, D, K, resident: Callable[[Plan], int]) -> list[Plan]:
+    """Every plan the kernel takes for one round of min(K, 64) keys at these
+    shapes, with at least one block resident on an SM."""
+    plans = [Plan(q, t, tile) for q in (1, 2) if q <= _max_queries(K, D)
+             for t in _THREADS for tile in _tiles(P2, D)]
+    return [p for p in plans if resident(p) >= 1]
+
+
+def _launch_plan(N, P1, P2, D, K, sm_count: int,
+                 resident: Callable[[Plan], int]) -> Plan:
+    """The plan ``knn_topk_cuda`` launches: the default tile, Q = 1 where a
+    larger Q would leave fewer blocks than SMs even at 32 threads, then the
+    least ``_plan_cost``; on ties the larger block, then the smaller Q."""
+    tile = _tiles(P2, D)[0]
+    plans = [p for p in feasible_plans(N, P1, P2, D, K, resident) if p.tile == tile]
+    plans = [p for p in plans
+             if p.queries == 1 or _blocks(N, P1, Plan(p.queries, 32, tile)) >= sm_count]
+    if not plans:
+        raise RuntimeError(f"knn_topk: no launch plan fits the card (D={D}, K={K})")
+    return min(plans, key=lambda p: (
+        _plan_cost(N, P1, D, p, sm_count, resident(p)), -p.threads, p.queries))
+
 
 # Above this many N*P1*P2 distance elements the plain version streams P2 in
 # tiles instead of materialising the whole matrix.
@@ -113,14 +217,53 @@ def knn_topk_plain(p1, p2, lengths2, K: int, norm: int):
     return _knn_forward_tiled(p1, p2, lengths2, K, norm)
 
 
-def _entry():
+@functools.cache
+def _lib():
     lib = _build.load("knn")
-    fn = lib.knn_topk
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    lib.knn_topk.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.knn_resident_blocks.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    for fn in (lib.knn_topk, lib.knn_resident_blocks):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device: int, K: int, D: int, norm: int, plan: Plan) -> int:
+    """Blocks of the kernel instance for (K, D, norm, plan) that fit on one
+    SM of CUDA device ``device`` (registers, shared memory, threads)."""
+    blocks = ctypes.c_int()
+    with torch.cuda.device(device):
+        _build.check(
+            _lib().knn_resident_blocks(K, D, norm, plan.queries, plan.threads,
+                                       plan.tile, ctypes.byref(blocks)),
+            "knn_resident_blocks",
+        )
+    return blocks.value
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _card_plan(device: int, N, P1, P2, D, K, norm) -> Plan:
+    return _launch_plan(N, P1, P2, D, K, _sm_count(device),
+                        lambda plan: _resident(device, K, D, norm, plan))
+
+
+def card_plans(p1, p2, K: int, norm: int) -> tuple[Plan, list[Plan]]:
+    """(the plan ``knn_topk_cuda`` picks, every feasible plan) for one round
+    of these CUDA inputs on their card."""
+    N, P1, D = p1.shape
+    P2 = p2.shape[1]
+    k = min(K, ROUND_K)
+    dev = p1.device.index
+    return (_card_plan(dev, N, P1, P2, D, k, norm),
+            feasible_plans(N, P1, P2, D, k,
+                           lambda plan: _resident(dev, k, D, norm, plan)))
 
 
 def _check_inputs(p1, p2, lengths2, K, norm):
@@ -136,31 +279,34 @@ def _check_inputs(p1, p2, lengths2, K, norm):
         raise ValueError("lengths2 must be of shape (N,)")
 
 
-def knn_topk_cuda(p1, p2, lengths2, K: int, norm: int):
+def knn_topk_cuda(p1, p2, lengths2, K: int, norm: int, *, _plan: Plan | None = None):
     """Launch ``csrc/knn.cu`` on CUDA tensors: float32 points, int64
     lengths, all contiguous and on one device. K > 64 runs ceil(K/64)
     chained rounds. Returns (dists (N, P1, K) float32, idx (N, P1, K) int64),
-    (inf, 0) in slots past ``lengths2``."""
+    (inf, 0) in slots past ``lengths2``. ``_plan`` forces a launch plan
+    (``tune_knn.py``); by default ``_launch_plan`` picks it."""
     _check_inputs(p1, p2, lengths2, K, norm)
+    dev = p1.device
     for t, dtype in ((p1, torch.float32), (p2, torch.float32),
                      (lengths2, torch.int64)):
-        if not t.is_cuda or t.device != p1.device:
+        if not t.is_cuda or t.device != dev:
             raise ValueError("knn_topk_cuda needs every input on one CUDA device")
         if t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"knn_topk_cuda needs contiguous {dtype} inputs")
     N, P1, D = p1.shape
     P2 = p2.shape[1]
-    fn = _entry()
-    stream = _build.stream_ptr(p1.device)
+    fn = _lib().knn_topk
+    stream = _build.stream_ptr(dev)
+    plan = _plan or _card_plan(dev.index, N, P1, P2, D, min(K, ROUND_K), norm)
 
     def launch(k, lb_d, lb_i):
-        d = torch.empty((N, P1, k), dtype=torch.float32, device=p1.device)
-        i = torch.empty((N, P1, k), dtype=torch.int64, device=p1.device)
+        d = torch.empty((N, P1, k), dtype=torch.float32, device=dev)
+        i = torch.empty((N, P1, k), dtype=torch.int64, device=dev)
         _build.check(
             fn(p1.data_ptr(), p2.data_ptr(), lengths2.data_ptr(),
                None if lb_d is None else lb_d.data_ptr(),
                None if lb_i is None else lb_i.data_ptr(),
-               N, P1, P2, D, k, norm, d.data_ptr(), i.data_ptr(), stream),
+               N, P1, P2, D, k, norm, *plan, d.data_ptr(), i.data_ptr(), stream),
             "knn_topk",
         )
         knn_topk_cuda.launches += 1

@@ -36,6 +36,7 @@ def test_port_imports_no_jax():
         "pytorch3d_pointops_tpu_torch.kernels.ball_query",
         "pytorch3d_pointops_tpu_torch.kernels.fps",
         "pytorch3d_pointops_tpu_torch.tune_fps",
+        "pytorch3d_pointops_tpu_torch.tune_knn",
         "pytorch3d_pointops_tpu_torch.structures.pointclouds",
         "pytorch3d_pointops_tpu_torch.convert",
         "pytorch3d_pointops_tpu_torch._build",

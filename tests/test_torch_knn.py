@@ -129,6 +129,81 @@ def test_plain_twin_tiled_equals_full():
         assert torch.equal(tiled_d[valid], full_d[valid])
 
 
+@pytest.mark.parametrize("norm", [1, 2])
+@pytest.mark.parametrize("K", [1, 16, 70])
+def test_knn_ties_at_ragged_sizes_match_jax(norm, K):
+    """1/8-grid points (distance-0 and equal-distance ties everywhere) at
+    sizes that are no multiple of any block, tile or group of the kernel,
+    with lengths2 ending mid-group: indices exactly the JAX package's."""
+    p1, p2, l1, l2 = _clouds(20 + K + norm, 2, 301, 523, grid=True)
+    l1[1], l2[1] = 299, 261
+    ref = jax_knn_points(p1, p2, l1, l2, norm=norm, K=K, impl="xla")
+    out = ppt.knn_points(_t(p1), _t(p2), _t(l1), _t(l2), norm=norm, K=K)
+    np.testing.assert_array_equal(out.idx.numpy(), np.asarray(ref.idx))
+    np.testing.assert_allclose(out.dists.numpy(), np.asarray(ref.dists), atol=TOL)
+
+
+def _fits(blocks_per_sm):
+    """A stand-in for the card's occupancy query: the same number of
+    resident blocks for every plan."""
+    return lambda plan: blocks_per_sm
+
+
+# (N, P1, P2, D, K): the north star, config 1, 16 x 10,000, a single query,
+# an empty query set, ragged widths, K past one round, wide points.
+_PLAN_SHAPES = [
+    (1, 100_000, 100_000, 3, 16), (2, 1000, 1000, 3, 8), (16, 10_000, 10_000, 3, 16),
+    (1, 1, 1, 3, 1), (1, 0, 50, 3, 4), (3, 1337, 2061, 5, 32), (1, 100_000, 777, 3, 100),
+    (4, 700, 900, 16, 8), (2, 50, 60, 200, 1),
+]
+
+
+@pytest.mark.parametrize("shape", _PLAN_SHAPES)
+def test_launch_plan_never_zero_blocks(shape):
+    N, P1, P2, D, K = shape
+    plan = kk._launch_plan(N, P1, P2, D, K, 132, _fits(2))
+    assert plan.queries <= kk._max_queries(K, D)
+    assert plan.threads in kk._THREADS and plan.tile >= 1
+    if N * P1:
+        blocks = kk._blocks(N, P1, plan)
+        assert blocks >= 1 and blocks * plan.queries * plan.threads >= N * P1
+
+
+@pytest.mark.parametrize("shape", [(2, 1000, 1000, 3, 8), (1, 4000, 9000, 3, 16),
+                                   (8, 300, 300, 5, 4), (1, 100, 100_000, 3, 1)])
+def test_launch_plan_q1_when_blocks_fewer_than_sms(shape):
+    N, P1, P2, D, K = shape
+    assert N * -(-P1 // (2 * 32)) < 132
+    assert kk._launch_plan(N, P1, P2, D, K, 132, _fits(4)).queries == 1
+
+
+@pytest.mark.parametrize("K", [65, 100, 128, 1000])
+def test_launch_plan_big_k_is_64_key_rounds(K):
+    """K > 64 runs chained 64-key rounds, planned as K = 64: one query a
+    thread (the 64-bucket's state is 128 registers)."""
+    for N, P1, P2 in ((1, 100_000, 100_000), (16, 10_000, 10_000)):
+        plan = kk._launch_plan(N, P1, P2, 3, K, 132, _fits(3))
+        assert plan == kk._launch_plan(N, P1, P2, 3, 64, 132, _fits(3))
+        assert plan.queries == 1
+        assert all(p.queries == 1 for p in kk.feasible_plans(N, P1, P2, 3, K, _fits(3)))
+
+
+@pytest.mark.parametrize("D", [9, 16, 100, 6144, 20000])
+def test_launch_plan_wide_points_take_the_generic_path(D):
+    """D > 8 is the kernel's any-D instance: one query a thread, two tiles
+    of D floats a candidate in the default 48 KB where a candidate fits."""
+    plan = kk._launch_plan(16, 10_000, 10_000, D, 16, 132, _fits(2))
+    assert plan.queries == 1
+    assert 2 * plan.tile * D * 4 <= max(48 * 1024, 2 * D * 4)
+    assert plan.tile == 1 or plan.tile % 16 == 0
+    assert all(p.queries == 1 for p in kk.feasible_plans(16, 10_000, 10_000, D, 16, _fits(2)))
+
+
+def test_launch_plan_needs_a_resident_block():
+    with pytest.raises(RuntimeError):
+        kk._launch_plan(1, 1000, 1000, 3, 8, 132, _fits(0))
+
+
 def test_knn_k_greater_than_p2():
     p1, p2, l1, l2 = _clouds(6, 2, 12, 5)
     ref = jax_knn_points(p1, p2, l1, l2, K=9, impl="xla")

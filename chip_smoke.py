@@ -7,8 +7,8 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
 Phase 1 builds the CUDA kernels from ``pytorch3d_pointops_tpu_torch/csrc``
 (five sources, one ``nvcc`` each, in parallel) into ``build/``, prints the
-registers and spills of every KNN kernel instance (and fails if one at D=3
-spills), and prints the card's name and power limit. Phase 2 holds every
+registers and spills of every KNN and FPS kernel instance (and fails if one
+at D=3 spills), and prints the card's name and power limit. Phase 2 holds every
 kernel against its plain PyTorch twin on the card: ragged lengths, fully
 masked clouds, norms 1 and 2, D in {3, 16}, K in {1, 8, 16, 64, 100} (KNN,
 distances bit-equal, under the default launch plan and, at sizes that are
@@ -16,7 +16,10 @@ no multiple of a block, tile or group, under every plan; then a 20,000 x
 20,000 cloud with distance-0 ties under every plan) and {1, 32, 100, 500}
 (ball query), points on a 1/8 grid so that ties and ball boundaries are
 real, every FPS entry point with per-cloud K (K past the length and past the
-number of distinct points), explicit starts and an empty cloud, and the
+number of distinct points), explicit starts and an empty cloud, the FPS
+grid kernel at and around each capacity of its launch plan (the largest
+slice with coordinates in registers, resident and register caps +- 1, 6M
+points, D=16 and D=1 past their caps), and the
 scatter: its radix sort (``sort_plan``) equal to the stable argsort
 (``segment_plan``) at one, two and three passes, on uniform targets and on
 targets that crowd 16 rows, and both entry points run twice and compared
@@ -47,7 +50,8 @@ against its plain twin at that shape (indices equal, values within 1e-5)
 and the scatters run twice for bit-equality; each scatter's sort and
 segment sum are timed apart, launch by launch, as is a skewed scatter (one
 row of 100,000 entries), and config 2's backward scatters print their
-longest segment. The line before the last is
+longest segment, and the FPS grid round's fixed cost is timed on a cloud of
+8 points a block. The line before the last is
 one JSON object with a record per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line. Without CUDA it exits 1 at once.
@@ -154,15 +158,16 @@ def grid_points(rng, shape):
     return rng.integers(-4, 5, size=shape).astype(np.float32) / 8.0
 
 
-def knn_instances(log: str) -> dict:
-    """{(KB, DIM, NORM, Q, chained): (registers, spill store bytes)} of each
-    ``knn_topk_kernel`` instance in ``nvcc -Xptxas -v`` output."""
+def kernel_instances(log: str, kernel: str) -> dict:
+    """{template arguments: (registers, spill store bytes)} of each instance
+    of ``kernel`` in ``nvcc -Xptxas -v`` output; the arguments are ints
+    (a bool as 0 or 1) in template order."""
     out, key = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*knn_topk_kernelILi(\d+)ELi(\d+)"
-                      r"ELi(\d+)ELi(\d+)ELb([01])E", ln)
+        m = re.search(r"Compiling entry function '\S*?" + kernel + r"I((?:L[ib]-?\d+E)+)E",
+                      ln)
         if m:
-            key = tuple(int(g) for g in m.groups())
+            key = tuple(int(g) for g in re.findall(r"L[ib](-?\d+)E", m.group(1)))
             out[key] = [0, 0]
         elif key and "bytes spill stores" in ln:
             out[key][1] = int(ln.split("bytes spill stores")[0].split(",")[-1])
@@ -215,7 +220,7 @@ def main() -> int:
     knn_log = os.path.join(_build.BUILD_DIR, "knn.ptxas.log")
     if os.path.exists(knn_log):
         with open(knn_log) as f:
-            instances = knn_instances(f.read())
+            instances = kernel_instances(f.read(), "knn_topk_kernel")
         by_dim = {}
         for key, (regs, spill) in sorted(instances.items()):
             by_dim.setdefault(key[1:3], []).append(
@@ -226,6 +231,20 @@ def main() -> int:
                   f"bytes): {' '.join(items)}")
         spilled = [k for k, (_, s) in instances.items() if k[1] == 3 and s]
         require(instances and not spilled, f"knn D=3 instances spill: {spilled}")
+    fps_log = os.path.join(_build.BUILD_DIR, "fps.ptxas.log")
+    if os.path.exists(fps_log):
+        with open(fps_log) as f:
+            log = f.read()
+        # fps_grid_kernel<DIM, SLOTS, THREADS> (csrc/fps.cu launch_grid_plan:
+        # 5 at D=3, 4 at any D) and fps_block_kernel<DIM>; DIM 0 is any D.
+        fps_inst = {(name, *k): v for name in ("fps_grid_kernel", "fps_block_kernel")
+                    for k, v in kernel_instances(log, name).items()}
+        print("  fps instances (registers, spill bytes): " + " ".join(
+            f"{name[4:-7]}<{','.join(map(str, k))}>:{regs}r{f'+{spill}s' if spill else ''}"
+            for (name, *k), (regs, spill) in sorted(fps_inst.items())))
+        spilled = [k for k, (_, s) in fps_inst.items() if k[1] == 3 and s]
+        require(len(fps_inst) == 11 and not spilled,
+                f"fps instances {sorted(fps_inst)}; D=3 spills: {spilled}")
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {gpu_line()}")
 
     stats = {k: {"err": 0.0} for k in ("knn", "chamfer", "rows", "k1", "ball",
@@ -395,6 +414,41 @@ def main() -> int:
                     torch.cuda.synchronize()
                     require(torch.equal(out, ref),
                             f"{wrapper.__name__} D={D} grid={grid} {N}x{P}: idx")
+    # The grid kernel's tiers (kernels/fps.py _grid_plan): one cloud at and
+    # around the largest slice whose coordinates registers hold, the
+    # resident and the register capacities, D=3 (the register cap at D=1
+    # for the any-D instances' global tier), one cloud past the resident
+    # cap at D=16, and 6M points.
+    sms, smem = kf._card(0)
+    fps_tiers = []
+    res3, reg3 = (sms * c for c in kf._grid_caps(3, smem))
+    coords3 = sms * max(t * s for t, s in kf.REG_PLANS)
+    res16 = sms * kf._grid_caps(16, smem)[0]
+    reg1 = sms * kf._grid_caps(1, smem)[1]
+    for D, P, K in ((3, coords3, 32), (3, coords3 + 1, 32),
+                    (3, res3 - 1, 32), (3, res3, 32), (3, res3 + 1, 32),
+                    (3, reg3 - 1, 32), (3, reg3, 32), (3, reg3 + 1, 32),
+                    (3, 6_000_000, 64), (16, res16 + 50_000, 32), (1, reg1 + 1, 32)):
+        gen = torch.Generator(device=dev).manual_seed(args.seed * 7919 + P)
+        pts = torch.randn((1, P, D), generator=gen, device=dev)
+        lens, Ks, starts = (T(np.array([a]), torch.int64) for a in (P, K, P // 3))
+        ref = kf.fps_plain(pts, lens, Ks, starts, K)
+        plan = kf.card_plan(pts)
+        runs = [(kf.fps_streaming, plan)]
+        if plan.tier == "resident":
+            runs.append((kf.fps_resident, plan))
+        else:
+            try:
+                kf.fps_resident(pts, lens, Ks, starts, K)
+                require(False, f"fps_resident took {P} points at D={D}")
+            except ValueError:
+                pass
+        for wrapper, pl in runs:
+            out = wrapper(pts, lens, Ks, starts, K, _plan=pl)
+            require(torch.equal(out, ref),
+                    f"{wrapper.__name__} D={D} P={P} {kf.plan_name(pl)}: idx")
+        fps_tiers.append(f"D={D} P={P}: {plan.tier} t{plan.threads}/s{plan.slots}")
+    print(f"  fps grid tiers, every run equal to fps_plain: {'; '.join(fps_tiers)}")
     print("phase 2: every kernel agrees with its plain twin "
           f"(max abs err {json.dumps({k: v['err'] for k, v in stats.items()})})")
 
@@ -823,6 +877,18 @@ def main() -> int:
             launches=launches2[name], max_abs_err=stats[name]["err"],
             ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None,
         ))
+    # The fixed cost of a grid round: about 8 points a block, K=1024.
+    tiny = T(rng.normal(size=(1, 8 * sms, 3)).astype(np.float32))
+    targs = (tiny, T(np.array([8 * sms]), torch.int64),
+             T(np.array([1024]), torch.int64), T(np.array([0]), torch.int64), 1024)
+    require(torch.equal(kf.fps_resident(*targs), kf.fps_plain(*targs)),
+            "fps_resident on the tiny cloud: idx")
+    round_us = cuda_ms(lambda: kf.fps_resident(*targs), reps=10) * 1e3 / 1023
+    print(f"  fps grid round latency: {round_us:.3f} us a round (one fps_resident "
+          f"call over its 1023 rounds, 1 x {8 * sms} points, K=1024, "
+          f"{kf.plan_name(kf.card_plan(tiny))})")
+    print("  fps plans: 1M " + kf.plan_name(kf.card_plan(big1)) + "; 4M "
+          + kf.plan_name(kf.card_plan(big4)))
     print("timed shapes: knn_topk 1 x 100000 x 100000 K=16 D=3; chamfer_nn_bidir "
           "16 x 10000 (ragged 9000-10000) D=3; scatter_add_rows E=1,600,000 "
           "into 100000 x 3; scatter_add_k1 E=16 x 10000 into 16 x 10000 x 3; "

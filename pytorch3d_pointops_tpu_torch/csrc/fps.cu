@@ -14,23 +14,53 @@
 //   shared memory, (D+1)*4 bytes a point; a round updates the min-distances
 //   against the last selected point and takes a block argmax on
 //   (value, index) pairs by warp shuffles and then shared memory.
-// * fps_grid_kernel (fps_resident, fps_streaming): the whole grid on one
-//   cloud at a time, for clouds one block cannot hold. Each block owns a
-//   contiguous slice of points and publishes its slice's (max, first
-//   argmax) every round; after a grid-wide barrier (cooperative launch,
-//   grid sized by occupancy) every block reduces the partials the same way.
-//   The (value, index) order picks the first maximum across slices, as
-//   _fps_chunked_kernel's read_winner does. RESIDENT keeps each slice's
-//   coordinates and min-distances in shared memory (the dense8 kernel's VMEM
-//   residency, one block per SM); otherwise both stream from device memory
-//   every round, for any D.
+// * fps_grid_kernel (fps_resident, fps_streaming): one block on every SM,
+//   all on one cloud at a time, for clouds one block cannot hold. Block b
+//   owns the contiguous slice [b * slice, (b + 1) * slice) of the cloud;
+//   point q of a slice is slot q / T of thread q % T (T threads a block),
+//   so each thread's points ascend. A launch plan (kernels/fps.py
+//   _grid_plan) picks the instance and says where a slice lives:
+//   - min-distances: in registers, SLOTS a thread, in fully unrolled loops,
+//     while a slice has at most 1024 * 32 points; beyond, in device memory
+//     (SLOTS = 0), read and written every round;
+//   - coordinates: at D=3 and up to 8192 points a slice, in registers too
+//     (256 threads with 8 slots, or 512 with 16: half the registers a
+//     thread has), with a copy in shared memory; otherwise 1024 threads
+//     hold the first `smem_slots` slots in shared memory and read the rest
+//     from a copy in device memory, made at the start of each cloud and
+//     small enough to stay in L2. Both copies are laid out
+//     [slot][d][thread], so a thread reads only what it staged itself (no
+//     barrier) at offsets known at compile time (no registers spent on
+//     addresses).
+//   fps_resident is a plan in which nothing streams; the two entry points
+//   run the same instances.
+//
+// A round of the grid kernel: every thread folds the last selected point
+// into its min-distances and keeps its first maximum; each warp reduces
+// its keys, (float bits of v) << 32 | (0xFFFFFFFF - index) (v >= 0, so the
+// largest key is the largest value with the lowest index), and takes its
+// best point's coordinates from shared memory (one broadcast load) or the
+// streamed copy. One barrier brings the warps' bests to warp 0, which
+// publishes the block's record for the round: the key and the coordinates,
+// each 64-bit word tagged with the round, in four copies. The first
+// ceil(blocks / 32) warps of every block then poll one copy of all records
+// (a lane each) until every word carries the round's tag, reduce them, and
+// a second barrier hands the winner, coordinates included, to the block:
+// one trip through L2 a round, no atomics, no grid barrier, and whatever
+// the order of arrival the same winner. The copies split the readers of
+// each record among four lines. Records form a ring of two rounds: a block
+// writes round r + 2 only after every block has published round r + 1,
+// which each does after reading round r. A wait that polls 2^22 times sets
+// an error flag and ends the kernel; the host entry point returns an error
+// for it. The launch is cooperative, which is what guarantees that every
+// block is resident while the others wait on it.
 //
 // Bound on the card: K sequential rounds, each a pass over the cloud with
 // 3*D+2 float32 operations a point (D subtractions, multiplies and adds, a
-// min and a compare) and a reduction whose latency (block barriers, or the
-// grid barrier) no amount of parallelism hides. The block kernel pays only
-// block barriers but uses one SM per cloud; the grid kernels spread a cloud
-// over every SM and pay one grid barrier a round.
+// min and a compare) and a reduction whose latency (block barriers, and
+// one publication through L2) no amount of parallelism hides. The block
+// kernel pays only block barriers but uses one SM per cloud; the grid
+// kernel spreads a cloud over every SM and pays the L2 round trip.
 //
 // Ties: the distance to the selected set is not masked for selected points
 // (they sit at 0), so when K exceeds the number of distinct points the
@@ -41,19 +71,19 @@
 // the distances, and hence every argmax, are bit-equal to the plain PyTorch
 // version.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
-
 namespace {
 
-constexpr int kThreads = 512;         // threads of every FPS block
-constexpr int kMaxGridBlocks = 2048;  // partials per buffer of the grid kernel
-constexpr int kStaticSmem = 1024;     // shared memory kept for static arrays
+constexpr int kThreads = 512;           // threads of a fps_block_kernel block
+constexpr int kMaxGridBlocks = 256;     // records a round: at most 8 polling warps
+constexpr int kStaticSmem = 1024;       // shared memory kept for static arrays
+constexpr unsigned kMaxPolls = 1u << 22;  // give up on a record rather than hang
+constexpr int kRecord = 4;  // 64-bit words of a block's record: key, x, y, z
+constexpr int kCopies = 4;  // copies of each record; block b reads copy b % 4
 
 // The (value, index) order of the argmax: the larger value wins, and on
 // equal values the smaller index.
@@ -142,7 +172,7 @@ __device__ __forceinline__ Cloud cloud_of(const int64_t* lengths,
 // written by the rounds.
 __device__ __forceinline__ void write_pads(int64_t* o, const Cloud& c,
                                            int max_K) {
-  for (int s = threadIdx.x; s < max_K; s += kThreads) {
+  for (int s = threadIdx.x; s < max_K; s += blockDim.x) {
     if (s == 0) {
       o[0] = c.k_n > 0 ? c.start_raw : -1;
     } else if (s >= c.k_n) {
@@ -203,24 +233,120 @@ __global__ void __launch_bounds__(kThreads) fps_block_kernel(
   }
 }
 
-template <bool RESIDENT, int DIM>
-__global__ void __launch_bounds__(kThreads) fps_grid_kernel(
+// ---- the grid kernel ------------------------------------------------------
+
+constexpr unsigned long long kTagBit = 1ull << 63;
+
+// Whether a grid thread keeps its points' coordinates in registers (DIM
+// known, coordinates and min-distances within half of the 65536 / threads
+// registers a thread may have): 8192 points a block at D=3.
+__host__ __device__ constexpr bool reg_coords(int dim, int slots, int threads) {
+  return dim > 0 && slots > 0 && (dim + 1) * slots * threads <= 32768;
+}
+
+// A record's words, read and written 16 bytes at a time at gpu scope
+// (through L2). Each word carries the round's tag, so a record torn
+// between rounds is never taken for a whole one.
+__device__ __forceinline__ void load_pair(const unsigned long long* p,
+                                          unsigned long long& a,
+                                          unsigned long long& b) {
+  asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];"
+               : "=l"(a), "=l"(b) : "l"(p) : "memory");
+}
+
+__device__ __forceinline__ void store_pair(unsigned long long* p,
+                                           unsigned long long a,
+                                           unsigned long long b) {
+  asm volatile("st.relaxed.gpu.global.v2.u64 [%0], {%1, %2};"
+               ::"l"(p), "l"(a), "l"(b) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long warp_max_u64(unsigned long long w) {
+  const unsigned hi = __reduce_max_sync(0xffffffffu, (unsigned)(w >> 32));
+  const unsigned lo = __reduce_max_sync(
+      0xffffffffu, (unsigned)(w >> 32) == hi ? (unsigned)w : 0u);
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+// The key of point `index` at min-distance v >= 0 (no tag).
+__device__ __forceinline__ unsigned long long key_of(float v, int index) {
+  return ((unsigned long long)__float_as_uint(v) << 32) |
+         (0xFFFFFFFFu - (unsigned)index);
+}
+
+// The warp's largest key, and the DIM coordinates x that came with it, in
+// every lane (keys are unique but for 0, which carries nothing).
+template <int DIM>
+__device__ __forceinline__ void warp_max_record(unsigned long long& key,
+                                                float* x) {
+  const unsigned long long m = warp_max_u64(key);
+  const int src = __ffs(__ballot_sync(0xffffffffu, key == m)) - 1;
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) x[d] = __shfl_sync(0xffffffffu, x[d], src);
+  key = m;
+}
+
+// Squared distance of the point x[d * xs] to sel[d], summed in order
+// d = 0..D-1, from the first term: 0 + t is t for every t = diff * diff
+// (never -0), so this is bit-equal to sq_dist.
+template <int DIM>
+__device__ __forceinline__ float grid_dist(const float* x, int xs,
+                                           const float* sel, int D) {
+  float diff = __fsub_rn(x[0], sel[0]);
+  float dist = __fmul_rn(diff, diff);
+#pragma unroll
+  for (int d = 1; d < (DIM > 0 ? DIM : D); ++d) {
+    diff = __fsub_rn(x[(int64_t)d * xs], sel[d]);
+    dist = __fadd_rn(dist, __fmul_rn(diff, diff));
+  }
+  return dist;
+}
+
+template <int DIM, int SLOTS, int T>
+__global__ void __launch_bounds__(T, 1) fps_grid_kernel(
     const float* __restrict__ points, const int64_t* __restrict__ lengths,
     const int64_t* __restrict__ Ks, const int64_t* __restrict__ starts, int N,
-    int P, int D, int max_K, int slice_cap, float* __restrict__ min_d,
-    unsigned long long* __restrict__ partials, int64_t* __restrict__ out) {
-  // RESIDENT: x (D, slice_cap), then min-distance (slice_cap); otherwise
-  // the min-distances are min_d (P) in device memory.
+    int P, int D, int max_K, int smem_slots,
+    unsigned long long* __restrict__ ctrl, float* __restrict__ soa,
+    float* __restrict__ md_g, int64_t* __restrict__ out) {
+  constexpr int kS = SLOTS > 0 ? SLOTS : 1;
+  constexpr int kD = DIM > 0 ? DIM : 1;
+  // A thread holds its points' coordinates in registers beside their
+  // min-distances while both take at most half the registers a thread has.
+  constexpr bool kRegCoords = reg_coords(DIM, SLOTS, T);
+  // Where every slot's coordinates fit shared memory (16 slots of 1024
+  // threads at D=3), a plan that stages all of them gets a pass with no
+  // branch between slots, so a thread's loads of several slots overlap.
+  constexpr bool kAllSmem = !kRegCoords && DIM > 0 && SLOTS > 0 &&
+                            (SLOTS * DIM * T + DIM) * 4 <= 232448 - kStaticSmem;
+  // x [smem_slots][D][T], then the selected point (D; any-D instances)
   extern __shared__ float smem[];
-  __shared__ float s_v[33];
-  __shared__ int s_i[33];
-  cg::grid_group grid = cg::this_grid();
+  __shared__ unsigned long long s_key[T / 32];  // each warp's best
+  __shared__ float s_x[kD][T / 32];
+  __shared__ unsigned long long s_win[kMaxGridBlocks / 32];  // polled records
+  __shared__ float s_wx[kD][kMaxGridBlocks / 32];
+  __shared__ int s_abort;
   const int nb = gridDim.x;
   const int b = blockIdx.x;
-  // Rounds counted over all clouds: round `step` publishes into buffer
-  // step & 1, so a block writes a buffer again only after the grid barrier
-  // that follows every block's reading of it.
-  unsigned step = 0;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int DD = DIM > 0 ? DIM : D;
+  const int pollers = (nb + 31) >> 5;
+  float* sel_s = smem + (int64_t)smem_slots * DD * T;
+  unsigned* error = reinterpret_cast<unsigned*>(ctrl);
+  unsigned long long* records = ctrl + 2;  // 2 rounds x kCopies x nb records
+  // soa and md_g hold, for each block, the slots of the largest slice.
+  const int64_t slots_max = (((int64_t)P + nb - 1) / nb + T - 1) / T;
+  const float* xs_t = smem + tid;
+  float* soa_b = soa ? soa + b * slots_max * DD * T : nullptr;
+  float* soa_t = soa ? soa_b + tid : nullptr;
+  float* md_t = md_g ? md_g + b * slots_max * T + tid : nullptr;
+  unsigned step = 0;  // rounds over all clouds
+  if (tid == 0) s_abort = 0;
+  float md[kS];
+  float xr[kRegCoords ? kS : 1][kD];
+  float sel[kD];
   for (int n = 0; n < N; ++n) {
     const Cloud c = cloud_of(lengths, Ks, starts, n, P, max_K);
     int64_t* o = out + (int64_t)n * max_K;
@@ -230,68 +356,205 @@ __global__ void __launch_bounds__(kThreads) fps_grid_kernel(
     const float* pn = points + (int64_t)n * P * D;
     const int slice = (c.L + nb - 1) / nb;
     const int p0 = min(b * slice, c.L);
-    const int p1 = min(p0 + slice, c.L);
-    float* xs = smem;
-    float* md = RESIDENT ? smem + (int64_t)D * slice_cap : min_d;
-    __syncthreads();  // the previous cloud's slice is no longer read
-    for (int p = p0 + threadIdx.x; p < p1; p += kThreads) {
-      if (RESIDENT) {
-        for (int d = 0; d < D; ++d) {
-          xs[(int64_t)d * slice_cap + (p - p0)] = pn[(int64_t)p * D + d];
+    const int cnt = min(p0 + slice, c.L) - p0;
+    const int slots = (cnt + T - 1) / T;  // this block's slots, for this cloud
+    // Stage the slice: point q = s * T + tid into slot s. Slots past the
+    // slice sit at -inf and never reach the maximum (their coordinates are
+    // not read as a point's).
+    if (SLOTS > 0) {
+#pragma unroll
+      for (int s = 0; s < kS; ++s) {
+        md[s] = -INFINITY;
+        if (s * T + tid < cnt) {
+          md[s] = INFINITY;
+          const float* src = pn + (int64_t)(p0 + s * T + tid) * DD;
+#pragma unroll
+          for (int d = 0; d < DD; ++d) {
+            if (kRegCoords) xr[s][d] = src[d];
+            if (s < smem_slots) {
+              smem[(int64_t)(s * DD + d) * T + tid] = src[d];
+            } else {
+              soa_t[(int64_t)(s * DD + d) * T] = src[d];
+            }
+          }
+        } else if (kRegCoords) {
+#pragma unroll
+          for (int d = 0; d < kD; ++d) xr[s][d] = 0.f;
         }
-        md[p - p0] = INFINITY;
-      } else {
-        md[p] = INFINITY;
+      }
+    } else {
+      for (int s = 0; s < slots && s * T + tid < cnt; ++s) {
+        const float* src = pn + (int64_t)(p0 + s * T + tid) * DD;
+        for (int d = 0; d < DD; ++d) {
+          if (s < smem_slots) {
+            smem[(int64_t)(s * DD + d) * T + tid] = src[d];
+          } else {
+            soa_t[(int64_t)(s * DD + d) * T] = src[d];
+          }
+        }
+        md_t[(int64_t)s * T] = INFINITY;
       }
     }
-    __syncthreads();
+    if (DIM > 0) {
+#pragma unroll
+      for (int d = 0; d < kD; ++d) sel[d] = pn[(int64_t)c.start * DD + d];
+    } else {
+      // The previous cloud's last round ended on a barrier after every
+      // read of sel_s.
+      for (int d = tid; d < D; d += T) sel_s[d] = pn[(int64_t)c.start * D + d];
+      __syncthreads();
+    }
+    const float* sp = DIM > 0 ? sel : sel_s;
 
-    int last = c.start;
-    float sel[DIM > 0 ? DIM : 1];
     for (int r = 1; r < c.k_n; ++r) {
-      const float* sp = pn + (int64_t)last * D;
+      // Fold the selected point in; keep this thread's first maximum.
+      float bv = 0.f;  // every min-distance of the slice is >= 0
+      int fs = -1;     // its slot
+      if (warp * 32 >= cnt) {
+        // No point of the slice in this warp (small slices).
+      } else if (kAllSmem && smem_slots >= kS) {
+        // Slots past the slice read whatever shared memory holds; their
+        // min-distance stays -inf (fminf(x, -inf) is -inf, NaN included).
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          const float dist = grid_dist<DIM>(xs_t + (int64_t)s * DD * T, T, sp, D);
+          md[s] = fminf(dist, md[s]);
+          bv = fmaxf(bv, md[s]);
+        }
+#pragma unroll
+        for (int s = kS - 1; s >= 0; --s) {
+          if (md[s] == bv) fs = s;
+        }
+      } else if (SLOTS > 0) {
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          if (s < slots) {
+            float dist;
+            if (kRegCoords) {
+              dist = grid_dist<DIM>(xr[s], 1, sp, D);
+            } else if (s < smem_slots) {
+              dist = grid_dist<DIM>(xs_t + (int64_t)s * DD * T, T, sp, D);
+            } else {
+              dist = grid_dist<DIM>(soa_t + (int64_t)s * DD * T, T, sp, D);
+            }
+            md[s] = fminf(dist, md[s]);
+            bv = fmaxf(bv, md[s]);
+          }
+        }
+#pragma unroll
+        for (int s = kS - 1; s >= 0; --s) {
+          if (s < slots && md[s] == bv) fs = s;
+        }
+      } else {
+        for (int s = 0; s < slots && s * T + tid < cnt; ++s) {
+          const float dist =
+              s < smem_slots ? grid_dist<DIM>(xs_t + (int64_t)s * DD * T, T, sp, D)
+                             : grid_dist<DIM>(soa_t + (int64_t)s * DD * T, T, sp, D);
+          const float m = fminf(dist, md_t[(int64_t)s * T]);
+          md_t[(int64_t)s * T] = m;
+          if (m > bv || fs < 0) {  // s ascends: strict keeps the first
+            bv = m;
+            fs = s;
+          }
+        }
+      }
+      // This thread's candidate, then the warp's, with its coordinates
+      // (every lane loads the same word: one broadcast).
+      unsigned long long key = fs >= 0 ? key_of(bv, p0 + fs * T + tid) : 0ull;
+      const unsigned long long wkey = warp_max_u64(key);
+      float cx[kD];
+#pragma unroll
+      for (int d = 0; d < kD; ++d) cx[d] = 0.f;
+      if (DIM > 0 && wkey) {
+        const int src = __ffs(__ballot_sync(0xffffffffu, key == wkey)) - 1;
+        const int ws = __shfl_sync(0xffffffffu, fs, src);
+        const int wt = (tid & ~31) + src;
+        const float* x = (ws < smem_slots ? smem : soa_b) + wt;
+#pragma unroll
+        for (int d = 0; d < kD; ++d) cx[d] = x[(int64_t)(ws * DIM + d) * T];
+      }
+      key = wkey;
+      if (lane == 0) {
+        s_key[warp] = key;
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) s_x[d][warp] = cx[d];
+      }
+      __syncthreads();
+      const unsigned long long tag = (unsigned long long)((step >> 1) & 1) << 63;
+      unsigned long long* round = records + (int64_t)(step & 1) * kCopies * nb * kRecord;
+      ++step;
+      if (warp == 0) {
+        key = lane < T / 32 ? s_key[lane] : 0ull;
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) cx[d] = lane < T / 32 ? s_x[d][lane] : 0.f;
+        warp_max_record<DIM>(key, cx);
+        if (lane < kCopies) {
+          unsigned long long* rec = round + ((int64_t)lane * nb + b) * kRecord;
+          const unsigned long long x0 = DIM > 0 ? __float_as_uint(cx[0]) : 0u;
+          const unsigned long long x1 = DIM > 1 ? __float_as_uint(cx[DIM > 1 ? 1 : 0]) : 0u;
+          const unsigned long long x2 = DIM > 2 ? __float_as_uint(cx[DIM > 2 ? 2 : 0]) : 0u;
+          store_pair(rec, tag | key, tag | x0);
+          if (DIM > 1) store_pair(rec + 2, tag | x1, tag | x2);
+        }
+      }
+      // Every block reads every record (copy b % kCopies): lane j of poller
+      // warp w takes record 32 w + j.
+      if (warp < pollers) {
+        const int j = warp * 32 + lane;
+        unsigned long long e[kRecord] = {0ull, 0ull, 0ull, 0ull};
+        bool done = j >= nb;
+        for (unsigned polls = 0;; ++polls) {
+          if (!done) {
+            const unsigned long long* rec = round + ((int64_t)(b % kCopies) * nb + j) * kRecord;
+            load_pair(rec, e[0], e[1]);
+            if (DIM > 1) load_pair(rec + 2, e[2], e[3]);
+            done = true;
+#pragma unroll
+            for (int k = 0; k < (DIM > 1 ? 4 : DIM > 0 ? 2 : 1); ++k) {
+              done &= (e[k] & kTagBit) == tag;
+            }
+          }
+          if (__all_sync(0xffffffffu, done)) break;
+          if (polls >= kMaxPolls ||
+              ((polls & 1023) == 1023 && *reinterpret_cast<volatile unsigned*>(error))) {
+            if (lane == 0) {
+              atomicExch(error, 1u);
+              s_abort = 1;
+            }
+            break;
+          }
+          __nanosleep(64);
+        }
+        key = j < nb ? e[0] & ~kTagBit : 0ull;
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) cx[d] = __uint_as_float((unsigned)e[1 + d]);
+        warp_max_record<DIM>(key, cx);
+        if (lane == 0) {
+          s_win[warp] = key;
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) s_wx[d][warp] = cx[d];
+        }
+      }
+      __syncthreads();
+      if (s_abort) return;
+      unsigned long long w = s_win[0];
+      int wk = 0;
+      for (int k = 1; k < pollers; ++k) {
+        if (s_win[k] > w) {
+          w = s_win[k];
+          wk = k;
+        }
+      }
+      const int last = (int)(0xFFFFFFFFu - (unsigned)w);
       if (DIM > 0) {
 #pragma unroll
-        for (int d = 0; d < (DIM > 0 ? DIM : 1); ++d) sel[d] = sp[d];
-        sp = sel;
+        for (int d = 0; d < kD; ++d) sel[d] = s_wx[d][wk];
+      } else {
+        // The barrier above ended this round's reads of sel_s.
+        for (int d = tid; d < D; d += T) sel_s[d] = __ldg(pn + (int64_t)last * D + d);
+        __syncthreads();
       }
-      // A block whose slice is empty publishes (-inf, INT_MAX): it never wins.
-      float bv = -INFINITY;
-      int bi = INT_MAX;
-      for (int p = p0 + threadIdx.x; p < p1; p += kThreads) {
-        const int64_t lp = RESIDENT ? p - p0 : p;
-        const float dist =
-            RESIDENT ? sq_dist<DIM>(xs + lp, slice_cap, sp, 1, D)
-                     : sq_dist<DIM>(pn + (int64_t)p * D, 1, sp, 1, D);
-        const float m = dist < md[lp] ? dist : md[lp];
-        md[lp] = m;
-        if (m > bv) {
-          bv = m;
-          bi = p;
-        }
-      }
-      block_argmax(bv, bi, s_v, s_i);
-      unsigned long long* buf = partials + (step & 1) * kMaxGridBlocks;
-      ++step;
-      if (threadIdx.x == 0) {
-        __stcg(buf + b,
-               ((unsigned long long)__float_as_uint(bv) << 32) | (unsigned)bi);
-      }
-      grid.sync();
-      float gv = -INFINITY;
-      int gi = INT_MAX;
-      for (int t = threadIdx.x; t < nb; t += kThreads) {
-        const unsigned long long e = __ldcg(buf + t);
-        const float v = __uint_as_float((unsigned)(e >> 32));
-        const int i = (int)(unsigned)(e & 0xffffffffu);
-        if (better(v, i, gv, gi)) {
-          gv = v;
-          gi = i;
-        }
-      }
-      block_argmax(gv, gi, s_v, s_i);
-      last = gi;
-      if (b == 0 && threadIdx.x == 0) o[r] = last;
+      if (b == 0 && tid == 0) o[r] = last;
     }
   }
 }
@@ -334,12 +597,17 @@ cudaError_t launch_block(const float* points, const int64_t* lengths,
   return cudaGetLastError();
 }
 
-template <bool RESIDENT, int DIM>
-cudaError_t launch_grid(const float* points, const int64_t* lengths,
-                        const int64_t* Ks, const int64_t* starts, int N, int P,
-                        int D, int max_K, float* min_d,
-                        unsigned long long* partials, int64_t* out,
-                        cudaStream_t stream) {
+struct GridArgs {
+  const float* points;
+  const int64_t *lengths, *Ks, *starts;
+  int N, P, D, max_K, smem_slots;
+  unsigned long long* ctrl;
+  float *soa, *md_g;
+  int64_t* out;
+};
+
+template <int DIM, int SLOTS, int T>
+cudaError_t launch_grid(GridArgs a, int blocks, cudaStream_t stream) {
   int sms = 0, budget = 0, coop = 0;
   cudaError_t err =
       (cudaError_t)device_attr(cudaDevAttrMultiProcessorCount, &sms);
@@ -348,54 +616,69 @@ cudaError_t launch_grid(const float* points, const int64_t* lengths,
     err = (cudaError_t)device_attr(cudaDevAttrCooperativeLaunch, &coop);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
-  auto kernel = fps_grid_kernel<RESIDENT, DIM>;
-  int slice_cap = 0;
-  size_t smem = 0;
-  if (RESIDENT) {
-    // One block per SM, each holding its slice of the largest cloud.
-    slice_cap = (P + sms - 1) / sms;
-    smem = (size_t)(D + 1) * slice_cap * sizeof(float);
-    if (smem > (size_t)budget) return cudaErrorInvalidValue;
-    err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-  }
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                      smem);
+  auto kernel = fps_grid_kernel<DIM, SLOTS, T>;
+  const size_t smem = (size_t)a.D * ((size_t)a.smem_slots * T + 1) * sizeof(float);
+  if (smem > (size_t)budget) return cudaErrorInvalidValue;
+  err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  int blocks = RESIDENT ? sms : per_sm * sms;
-  if (blocks > kMaxGridBlocks) blocks = kMaxGridBlocks;
-  void* args[] = {(void*)&points, (void*)&lengths, (void*)&Ks,
-                  (void*)&starts, (void*)&N,       (void*)&P,
-                  (void*)&D,      (void*)&max_K,   (void*)&slice_cap,
-                  (void*)&min_d,  (void*)&partials, (void*)&out};
-  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
-                                     dim3(kThreads), args, smem, stream);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, T, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1 || blocks > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
+  // The error word at 0, then every record of both rounds at tag 1.
+  err = cudaMemsetAsync(a.ctrl, 0, 2 * sizeof(unsigned long long), stream);
+  if (err == cudaSuccess) {
+    err = cudaMemsetAsync(a.ctrl + 2, 0xff,
+                          2 * (size_t)kCopies * blocks * kRecord * sizeof(unsigned long long),
+                          stream);
+  }
+  if (err != cudaSuccess) return err;
+  void* args[] = {(void*)&a.points, (void*)&a.lengths, (void*)&a.Ks,
+                  (void*)&a.starts, (void*)&a.N,       (void*)&a.P,
+                  (void*)&a.D,      (void*)&a.max_K,   (void*)&a.smem_slots,
+                  (void*)&a.ctrl,   (void*)&a.soa,     (void*)&a.md_g,
+                  (void*)&a.out};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
+                                    dim3(T), args, smem, stream);
+  if (err != cudaSuccess) return err;
+  // A wait that gave up set the error word: report it, never a result.
+  unsigned flag = 0;
+  err = cudaMemcpyAsync(&flag, a.ctrl, sizeof(flag), cudaMemcpyDeviceToHost,
+                        stream);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(stream);
+  if (err != cudaSuccess) return err;
+  return flag ? cudaErrorLaunchTimeout : cudaSuccess;
+}
+
+// The instances: at D=3, small slices with coordinates in registers
+// (256 threads with 8 slots, 512 with 16) and larger ones in shared memory and
+// streamed (1024 threads, 16 or 32 slots, or min-distances in device
+// memory); at any other D, 1024 threads with 8, 16, 32 or 0 slots.
+template <int DIM>
+cudaError_t launch_grid_plan(GridArgs a, int blocks, int threads, int slots,
+                             cudaStream_t stream) {
+  if constexpr (DIM == 3) {
+    if (threads == 256 && slots == 8) return launch_grid<DIM, 8, 256>(a, blocks, stream);
+    if (threads == 512 && slots == 16) return launch_grid<DIM, 16, 512>(a, blocks, stream);
+  } else {
+    if (threads == 1024 && slots == 8) return launch_grid<DIM, 8, 1024>(a, blocks, stream);
+  }
+  if (threads == 1024 && slots == 16) return launch_grid<DIM, 16, 1024>(a, blocks, stream);
+  if (threads == 1024 && slots == 32) return launch_grid<DIM, 32, 1024>(a, blocks, stream);
+  if (threads == 1024 && slots == 0) return launch_grid<DIM, 0, 1024>(a, blocks, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The largest P that fps_block (one block per cloud) and fps_grid with
-// resident = 1 (one block per SM) take at this D on the current device.
-// Returns a cudaError_t.
-extern "C" int fps_limits(int D, int64_t* block_max_points,
-                          int64_t* resident_max_points) {
-  int sms = 0, budget = 0;
+// The device's SM count and the dynamic shared memory an FPS block may take
+// (kernels/fps.py reads its capacities from these). Returns a cudaError_t.
+extern "C" int fps_card(int* sms, int* smem_bytes) {
   cudaError_t err =
-      (cudaError_t)device_attr(cudaDevAttrMultiProcessorCount, &sms);
-  if (err == cudaSuccess) err = (cudaError_t)smem_budget(&budget);
-  if (err != cudaSuccess) return err;
-  if (D < 1) return cudaErrorInvalidValue;
-  const int64_t per_block = budget / ((int64_t)(D + 1) * sizeof(float));
-  *block_max_points = per_block;
-  *resident_max_points = per_block * sms;
-  return cudaSuccess;
+      (cudaError_t)device_attr(cudaDevAttrMultiProcessorCount, sms);
+  if (err == cudaSuccess) err = (cudaError_t)smem_budget(smem_bytes);
+  return err;
 }
-
-// Number of partial entries in each of the grid kernel's two buffers: the
-// partials argument of fps_grid holds 2 * fps_grid_max_blocks() uint64.
-extern "C" int fps_grid_max_blocks() { return kMaxGridBlocks; }
 
 // points (N, P, D) float32; lengths, Ks, starts (N,) int64; out (N, max_K)
 // int64, written in full. One block per cloud. Returns a cudaError_t.
@@ -411,31 +694,40 @@ extern "C" int fps_block(const float* points, const int64_t* lengths,
   return launch_block<0>(points, lengths, Ks, starts, N, P, D, max_K, out, s);
 }
 
-// As fps_block, with every SM on one cloud at a time (cooperative launch).
-// resident = 1 keeps the points in shared memory (P up to fps_limits'
-// resident_max_points); resident = 0 streams them and the min-distances,
-// min_d (P) float32, from device memory. partials: 2 * fps_grid_max_blocks()
-// uint64 of scratch. Returns a cudaError_t.
+// As fps_block, with `blocks` blocks of `threads` threads on one cloud at
+// a time (cooperative launch), under a launch plan of kernels/fps.py
+// (launch_grid_plan lists the instances). A block's slice of the largest
+// cloud is ceil(P / blocks) points, S = ceil(slice / threads) slots a
+// thread. `slots` is how many min-distances a thread holds in registers (at
+// least S), or 0 for min_d in device memory (blocks * S * threads
+// float32). The first `smem_slots` slots of every slice sit in shared
+// memory (all S where registers hold the coordinates too), the rest in soa
+// (blocks * S * D * threads float32; unused when nothing streams). ctrl:
+// 2 + 32 * blocks uint64 of scratch. Waits for the kernel, and returns
+// cudaErrorLaunchTimeout if a block gave up waiting. Returns a cudaError_t.
 extern "C" int fps_grid(const float* points, const int64_t* lengths,
                         const int64_t* Ks, const int64_t* starts, int N, int P,
-                        int D, int max_K, int resident, float* min_d,
-                        unsigned long long* partials, int64_t* out,
-                        void* stream) {
+                        int D, int max_K, int blocks, int threads, int slots,
+                        int smem_slots,
+                        unsigned long long* ctrl, float* soa, float* min_d,
+                        int64_t* out, void* stream) {
   if (N <= 0 || max_K <= 0) return cudaSuccess;
-  if (D < 1 || P < 1) return cudaErrorInvalidValue;
+  if (D < 1 || P < 1 || blocks < 1 || blocks > kMaxGridBlocks ||
+      smem_slots < 0 || !ctrl) {
+    return cudaErrorInvalidValue;
+  }
+  const int64_t slice = ((int64_t)P + blocks - 1) / blocks;
+  if (threads != 256 && threads != 512 && threads != 1024) return cudaErrorInvalidValue;
+  const int64_t S = (slice + threads - 1) / threads;
+  if (slots > 0 && slots < S) return cudaErrorInvalidValue;
+  if (reg_coords(D == 3 ? 3 : 0, slots, threads) ? smem_slots < S
+                                                 : (S > smem_slots && !soa)) {
+    return cudaErrorInvalidValue;
+  }
+  if (slots == 0 && !min_d) return cudaErrorInvalidValue;
+  GridArgs a{points, lengths, Ks, starts, N, P, D, max_K, smem_slots, ctrl,
+             soa, min_d, out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (resident) {
-    if (D == 3) {
-      return launch_grid<true, 3>(points, lengths, Ks, starts, N, P, D, max_K,
-                                  min_d, partials, out, s);
-    }
-    return launch_grid<true, 0>(points, lengths, Ks, starts, N, P, D, max_K,
-                                min_d, partials, out, s);
-  }
-  if (D == 3) {
-    return launch_grid<false, 3>(points, lengths, Ks, starts, N, P, D, max_K,
-                                 min_d, partials, out, s);
-  }
-  return launch_grid<false, 0>(points, lengths, Ks, starts, N, P, D, max_K,
-                               min_d, partials, out, s);
+  if (D == 3) return launch_grid_plan<3>(a, blocks, threads, slots, s);
+  return launch_grid_plan<0>(a, blocks, threads, slots, s);
 }

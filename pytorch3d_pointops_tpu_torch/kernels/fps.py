@@ -7,9 +7,18 @@ Three entry points, one per TPU kernel of
 * ``fps_batched`` (``fps_pallas_batched``): one block per cloud, the cloud
   held in shared memory; for clouds up to ``fps_limits(...)[0]`` points;
 * ``fps_resident`` (``fps_pallas``): every SM on one cloud at a time, the
-  cloud held in shared memory across the SMs; up to ``fps_limits(...)[1]``;
-* ``fps_streaming`` (``fps_pallas_chunked``): every SM on one cloud, points
-  and min-distances streamed from device memory every round; any size, any D.
+  cloud held on chip (registers and shared memory) across the SMs; up to
+  ``fps_limits(...)[1]``;
+* ``fps_streaming`` (``fps_pallas_chunked``): every SM on one cloud, as
+  much of it as fits on chip, the rest streamed from a copy in device
+  memory every round; any size, any D.
+
+The two grid entry points launch one kernel under a ``GridPlan`` that
+``_grid_plan`` picks from the cloud size, D, the SM count and the shared
+memory a block may take: its tier says where the min-distances (registers
+or device memory) and the coordinates (registers, shared memory, or partly
+streamed) live. Up to ``fps_limits(...)[1]`` points both entry points run
+the same plan, and so the same kernel instance.
 
 Each takes points (N, P, D) float32 and lengths, K, start indices (N,)
 int64, and returns idx (N, max_K) int64: ``idx[n, 0]`` is the start, each
@@ -23,12 +32,37 @@ design note is at the top of ``csrc/fps.cu``.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 
 _INF = float("inf")
+
+GRID_THREADS = 1024   # threads of a grid block whose coordinates sit in shared memory
+SLOTS = (8, 16, 32)   # min-distances such a thread may hold in registers
+# At D=3, (threads, slots) of the blocks that hold their coordinates in
+# registers too: slices of up to 8192 points.
+REG_PLANS = ((256, 8), (512, 16))
+MAX_GRID_BLOCKS = 256  # csrc/fps.cu kMaxGridBlocks
+_RECORD = 4           # 64-bit words a grid block publishes a round (kRecord)
+_COPIES = 4           # copies of each record (kCopies)
+
+
+class GridPlan(NamedTuple):
+    """One launch of ``csrc/fps.cu``'s grid kernel (``_grid_plan``)."""
+
+    tier: str        # "resident", "registers" or "global"
+    blocks: int      # one an SM
+    threads: int     # a block
+    slots: int       # min-distances a thread holds in registers; 0: none
+    slice: int       # points of the largest cloud a block owns
+    smem_slots: int  # slots of a slice whose coordinates sit in shared memory
+    resident: int    # points of a slice whose coordinates stay on chip
+    streamed: int    # the rest, read from a copy in device memory every round
+    smem_bytes: int  # dynamic shared memory a block takes
 
 
 def fps_plain(points, lengths, K, starts, max_K: int):
@@ -72,38 +106,123 @@ def _check_inputs(points, lengths, K, starts, max_K):
         raise ValueError(f"max_K must be a non-negative int (got {max_K!r})")
 
 
+@functools.cache
 def _lib():
     lib = _build.load("fps")
-    lib.fps_limits.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    lib.fps_grid_max_blocks.argtypes = []
+    lib.fps_card.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.fps_block.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p, ctypes.c_void_p,
     ]
-    lib.fps_grid.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    for fn in (lib.fps_limits, lib.fps_grid_max_blocks, lib.fps_block, lib.fps_grid):
+    lib.fps_grid.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p] * 5
+    for fn in (lib.fps_card, lib.fps_block, lib.fps_grid):
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _card(device: int) -> tuple[int, int]:
+    """(SM count, dynamic shared memory an FPS block may take) of CUDA
+    device ``device``."""
+    sms = ctypes.c_int()
+    smem = ctypes.c_int()
+    with torch.cuda.device(device):
+        _build.check(_lib().fps_card(ctypes.byref(sms), ctypes.byref(smem)),
+                     "fps_card")
+    return sms.value, smem.value
+
+
+def _smem_slots(D: int, smem_bytes: int, threads: int) -> int:
+    """Slots of ``threads`` points whose D coordinates fit a grid block's
+    shared memory, beside the selected point's D."""
+    return max(0, (smem_bytes - 4 * D) // (4 * D * threads))
+
+
+def _grid_caps(D: int, smem_bytes: int) -> tuple[int, int]:
+    """(resident, registers): the most points a grid block's slice may have
+    with every coordinate on chip and min-distances in registers (in
+    registers up to 8192 points at D=3, in shared memory beyond), and the
+    most with min-distances in registers at all (``GRID_THREADS`` x the
+    largest of ``SLOTS``)."""
+    registers = GRID_THREADS * SLOTS[-1]
+    in_regs = (t * s for t, s in REG_PLANS
+               if D == 3 and 4 * D * (t * s + 1) <= smem_bytes)
+    on_chip = max(_smem_slots(D, smem_bytes, GRID_THREADS) * GRID_THREADS,
+                  max(in_regs, default=0))
+    return min(on_chip, registers), registers
+
+
+def _grid_plan(N: int, P: int, D: int, sm_count: int, smem_bytes: int) -> GridPlan:
+    """The launch of ``csrc/fps.cu``'s grid kernel for clouds of up to P
+    points at dimension D: one block an SM, each owning ``slice`` =
+    ceil(P / blocks) points of a cloud, S = ceil(slice / threads) slots a
+    thread. The clouds take turns, so N does not change the plan.
+
+    At D=3 a slice of up to 8192 points takes the first of ``REG_PLANS``
+    that holds it (256 threads with 8 slots, or 512 with 16): each thread
+    keeps its points' coordinates and min-distances in registers, and a
+    copy of the coordinates in shared memory serves the candidates' lookups.
+    Otherwise a block has ``GRID_THREADS`` threads, ``slots`` is the fewest
+    of ``SLOTS`` that is at least S, or 0 past the largest, and the first
+    slots' coordinates sit in shared memory (at D=3 all ``slots`` of them
+    where they fit, so that the pass needs no branch between slots). The
+    tier follows:
+
+    * ``resident`` (slice <= the resident cap of ``_grid_caps``):
+      min-distances in registers and every coordinate on chip;
+    * ``registers`` (slice <= the register cap): min-distances in
+      registers, the first slots' coordinates in shared memory, the rest
+      streamed from a copy in device memory every round;
+    * ``global``: as ``registers``, with min-distances in device memory."""
+    if not 1 <= sm_count <= MAX_GRID_BLOCKS:
+        raise ValueError(f"the FPS grid kernel takes 1 to {MAX_GRID_BLOCKS} SMs "
+                         f"(got {sm_count})")
+    slice_ = -(-P // sm_count)
+    reg = [(t, s) for t, s in REG_PLANS
+           if D == 3 and t * s >= slice_ and 4 * D * (t * s + 1) <= smem_bytes]
+    if reg:
+        (threads, slots), resident = reg[0], slice_
+        smem_slots = -(-slice_ // threads)
+    else:
+        threads = GRID_THREADS
+        S = -(-slice_ // threads)
+        slots = next((s for s in SLOTS if s >= S), 0)
+        fit = _smem_slots(D, smem_bytes, threads)
+        # At D=3 all of a thread's slots in shared memory when they fit
+        # (16): csrc/fps.cu then runs a pass without branches between slots.
+        smem_slots = slots if D == 3 and 0 < slots <= fit else min(S, fit)
+        resident = min(slice_, smem_slots * threads)
+    streamed = slice_ - resident
+    tier = "global" if not slots else "registers" if streamed else "resident"
+    return GridPlan(tier, sm_count, threads, slots, slice_, smem_slots,
+                    resident, streamed, 4 * D * (smem_slots * threads + 1))
+
+
+def plan_name(plan: GridPlan) -> str:
+    return (f"{plan.tier} t{plan.threads}/s{plan.slots} smem-slots {plan.smem_slots} "
+            f"resident {plan.resident} streamed {plan.streamed}")
 
 
 def fps_limits(D: int, device) -> tuple[int, int]:
     """(block, resident): the largest cloud ``fps_batched`` and
     ``fps_resident`` take at dimension D on this CUDA device, set by its
     shared memory per block and its number of SMs."""
-    block = ctypes.c_int64()
-    resident = ctypes.c_int64()
-    with torch.cuda.device(device):
-        _build.check(
-            _lib().fps_limits(D, ctypes.byref(block), ctypes.byref(resident)),
-            "fps_limits",
-        )
-    return block.value, resident.value
+    device = torch.device(device)
+    sms, smem = _card(device.index if device.index is not None
+                      else torch.cuda.current_device())
+    return smem // ((D + 1) * 4), sms * _grid_caps(D, smem)[0]
 
 
-def _launch(mode, points, lengths, K, starts, max_K):
+def card_plan(points) -> GridPlan:
+    """The plan the grid entry points launch for these CUDA points."""
+    N, P, D = points.shape
+    return _grid_plan(N, P, D, *_card(points.device.index))
+
+
+def _launch(mode, points, lengths, K, starts, max_K, plan=None):
     """Launch ``csrc/fps.cu`` on CUDA tensors: float32 points, int64
-    lengths/K/starts, all contiguous and on one device."""
+    lengths/K/starts, all contiguous and on one device. The grid modes take
+    ``plan``, or ``card_plan``'s."""
     _check_inputs(points, lengths, K, starts, max_K)
     for t, dtype in ((points, torch.float32), (lengths, torch.int64),
                      (K, torch.int64), (starts, torch.int64)):
@@ -122,21 +241,32 @@ def _launch(mode, points, lengths, K, starts, max_K):
         if mode == "block":
             err = lib.fps_block(*args, out.data_ptr(), stream)
         else:
-            resident = mode == "resident"
-            partials = torch.empty(2 * lib.fps_grid_max_blocks(),
-                                   dtype=torch.int64, device=dev)
-            min_d = None if resident else torch.empty(P, dtype=torch.float32,
-                                                      device=dev)
-            err = lib.fps_grid(*args, int(resident),
+            plan = plan or card_plan(points)
+            if mode == "resident" and plan.tier != "resident":
+                raise ValueError(
+                    f"fps_resident takes clouds of up to {fps_limits(D, dev)[1]} "
+                    f"points at D={D} (got {P})")
+            S = -(-plan.slice // plan.threads)
+            ctrl = torch.empty(2 + 2 * _COPIES * plan.blocks * _RECORD,
+                               dtype=torch.int64, device=dev)
+            soa = (torch.empty(plan.blocks * S * D * plan.threads,
+                               dtype=torch.float32, device=dev)
+                   if plan.streamed > 0 else None)
+            min_d = (torch.empty(plan.blocks * S * plan.threads,
+                                 dtype=torch.float32, device=dev)
+                     if plan.slots == 0 else None)
+            err = lib.fps_grid(*args, plan.blocks, plan.threads, plan.slots,
+                               plan.smem_slots, ctrl.data_ptr(),
+                               None if soa is None else soa.data_ptr(),
                                None if min_d is None else min_d.data_ptr(),
-                               partials.data_ptr(), out.data_ptr(), stream)
+                               out.data_ptr(), stream)
     _build.check(err, f"fps ({mode})")
     return out
 
 
-def _dispatch(wrapper, mode, points, lengths, K, starts, max_K):
+def _dispatch(wrapper, mode, points, lengths, K, starts, max_K, plan=None):
     if points.is_cuda:
-        out = _launch(mode, points, lengths, K, starts, max_K)
+        out = _launch(mode, points, lengths, K, starts, max_K, plan)
         wrapper.launches += 1
         return out
     if points.device.type == "cpu":
@@ -151,16 +281,20 @@ def fps_batched(points, lengths, K, starts, max_K: int):
     return _dispatch(fps_batched, "block", points, lengths, K, starts, max_K)
 
 
-def fps_resident(points, lengths, K, starts, max_K: int):
-    """Every SM on one cloud at a time, the cloud in shared memory (clouds of
-    up to ``fps_limits(D, dev)[1]`` points)."""
-    return _dispatch(fps_resident, "resident", points, lengths, K, starts, max_K)
+def fps_resident(points, lengths, K, starts, max_K: int, *, _plan=None):
+    """Every SM on one cloud at a time, the cloud on chip (clouds of up to
+    ``fps_limits(D, dev)[1]`` points). ``_plan`` forces a launch plan
+    (``tune_fps.py``, ``chip_smoke.py``)."""
+    return _dispatch(fps_resident, "resident", points, lengths, K, starts, max_K,
+                     _plan)
 
 
-def fps_streaming(points, lengths, K, starts, max_K: int):
-    """Every SM on one cloud at a time, streaming it from device memory
-    every round (any size)."""
-    return _dispatch(fps_streaming, "streaming", points, lengths, K, starts, max_K)
+def fps_streaming(points, lengths, K, starts, max_K: int, *, _plan=None):
+    """Every SM on one cloud at a time, any size: what the chip cannot hold
+    is streamed from device memory every round (``_grid_plan``'s tiers).
+    ``_plan`` forces a launch plan (``tune_fps.py``, ``chip_smoke.py``)."""
+    return _dispatch(fps_streaming, "streaming", points, lengths, K, starts, max_K,
+                     _plan)
 
 
 fps_batched.launches = 0

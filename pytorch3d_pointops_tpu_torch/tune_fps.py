@@ -6,10 +6,14 @@ Run from the repository root on a machine with a CUDA card:
     python -m pytorch3d_pointops_tpu_torch.tune_fps [--seed 0] [--out FILE]
 
 For each batch shape (N clouds of P points, D=3, uniform in the unit cube,
-K=512 rounds, or K=1024 past 500k points) it times every entry point that
-takes the shape (CUDA events, median of 3 after a warm-up) and prints one
-JSON line per shape, then the card's name and power limit. Each timed
+at K rounds) it times every entry point that takes the shape (CUDA events,
+median of 3 after a warm-up) and prints one JSON line per shape with the
+grid kernel's launch plan, then the card's name and power limit. Each timed
 output is also checked against ``fps_plain``'s at one shape per kernel.
+Where the plan keeps a slice's coordinates in registers, the same call is
+also timed under a plan of 1024 threads that keeps them in shared memory
+(``smem_coords_ms``). A copy of this file in an older tree's package times
+that tree's kernels (without plans).
 Exits 1 without a CUDA device.
 """
 
@@ -25,10 +29,13 @@ import numpy as np
 import torch
 
 SHAPES = (
-    # (N, P): a few clouds around one block's capacity, then large clouds.
-    (1, 2048), (1, 4096), (1, 8192), (1, 14000),
-    (2, 8192), (4, 8192), (8, 8192), (4, 14000), (8, 14000), (16, 14000),
-    (32, 4096), (1, 100_000), (1, 500_000), (1, 1_000_000), (1, 1_800_000),
+    # (N, P, K): a few clouds around one block's capacity, then large clouds.
+    (1, 2048, 512), (1, 4096, 512), (1, 8192, 512), (1, 14000, 512),
+    (2, 8192, 512), (4, 8192, 512), (8, 8192, 512), (4, 14000, 512),
+    (8, 14000, 512), (16, 14000, 512), (32, 4096, 512), (1, 100_000, 512),
+    (1, 500_000, 512), (1, 1_000_000, 1024), (1, 1_800_000, 1024),
+    (1, 2_000_000, 512), (1, 3_000_000, 512), (1, 4_000_000, 512),
+    (1, 6_000_000, 512),
 )
 
 
@@ -62,8 +69,8 @@ def main() -> int:
     block_max, resident_max = kf.fps_limits(3, dev)
     lines = []
     checked = set()
-    for N, P in SHAPES:
-        K = 512 if P <= 500_000 else 1024
+    plans = hasattr(kf, "card_plan")
+    for N, P, K in SHAPES:
         pts = torch.rand((N, P, 3), generator=gen, device=dev)
         lengths = torch.full((N,), P, dtype=torch.int64, device=dev)
         Ks = torch.full((N,), K, dtype=torch.int64, device=dev)
@@ -82,6 +89,15 @@ def main() -> int:
                     raise RuntimeError(f"tune_fps: {name} disagrees with fps_plain")
                 checked.add(name)
             row[name + "_ms"] = _ms(lambda: fn(pts, lengths, Ks, starts, K))
+        if plans and P > block_max:
+            plan = kf.card_plan(pts)
+            row["plan"] = kf.plan_name(plan)
+            if (plan.threads, plan.slots) in kf.REG_PLANS:
+                S = -(-plan.slice // kf.GRID_THREADS)
+                alt = plan._replace(threads=kf.GRID_THREADS, slots=16, smem_slots=S,
+                                    smem_bytes=4 * 3 * (S * kf.GRID_THREADS + 1))
+                row["smem_coords_ms"] = _ms(lambda: kf.fps_streaming(
+                    pts, lengths, Ks, starts, K, _plan=alt))
         lines.append(json.dumps(row))
         print(lines[-1], flush=True)
     gpu = subprocess.run(

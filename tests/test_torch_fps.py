@@ -2,6 +2,8 @@
 the JAX package, on the CPU: the same numpy inputs go through both. Indices
 must be equal; sampled points and gradients agree to 1e-5."""
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -184,10 +186,127 @@ def test_edge_shapes_and_errors():
         ppt.sample_farthest_points(_t(pts), _t(np.array([10, 10, 10])), 3)
 
 
-def test_route_and_wrappers_launch_or_raise():
+# An H100 SXM: 132 SMs, 227 KB of shared memory a block less the 1 KB the
+# FPS kernels keep for static arrays.
+_SMS, _SMEM = 132, 232448 - 1024
+
+
+def _caps(D):
+    """(resident, register) capacities of the whole grid, in points."""
+    res, reg = kf._grid_caps(D, _SMEM)
+    return _SMS * res, _SMS * reg
+
+
+_EDGES = ("res-1", "res", "res+1", "reg-1", "reg", "reg+1", "one", "6M")
+
+
+def _edge_P(D, edge):
+    res, reg = _caps(D)
+    return {"res-1": res - 1, "res": res, "res+1": res + 1, "reg-1": reg - 1,
+            "reg": reg, "reg+1": reg + 1, "one": 1, "6M": 6_000_000}[edge]
+
+
+def _check_plan(P, D, plan):
+    """The blocks' slices tile [0, P) in order; within a slice, slot s of
+    thread t is point s * threads + t, so a thread's points ascend and the
+    block's threads visit each point of its slice once; the slots hold the
+    slice; resident plus streamed is the slice; the shared memory stays
+    within the budget."""
+    assert plan.blocks == _SMS and plan.slice == -(-P // _SMS)
+    assert plan.threads in (256, 512, 1024) and plan.threads % 32 == 0
+    assert -(-_SMS // 32) <= plan.threads // 32  # a lane for each record
+    starts = np.minimum(np.arange(plan.blocks) * plan.slice, P)
+    ends = np.minimum(starts + plan.slice, P)
+    assert starts[0] == 0 and ends[-1] == P
+    np.testing.assert_array_equal(starts[1:], ends[:-1])
+    S = -(-plan.slice // plan.threads)
+    for b in {0, int(np.searchsorted(ends, P))}:
+        cnt = int(ends[b] - starts[b])
+        q = np.arange(S)[:, None] * plan.threads + np.arange(plan.threads)[None, :]
+        assert (np.diff(q, axis=0) > 0).all()
+        np.testing.assert_array_equal(np.sort(q[q < cnt]), np.arange(cnt))
+    assert plan.slots == 0 or plan.slots >= S
+    assert plan.resident + plan.streamed == plan.slice and plan.resident >= 0
+    assert plan.smem_bytes == 4 * D * (plan.smem_slots * plan.threads + 1)
+    assert plan.smem_bytes <= _SMEM and plan.smem_slots <= max(S, plan.slots)
+    in_regs = (D == 3 and plan.slots > 0
+               and (D + 1) * plan.slots * plan.threads <= 32768)  # csrc reg_coords
+    if in_regs:
+        assert (plan.threads, plan.slots) in kf.REG_PLANS
+        assert plan.smem_slots == S and plan.streamed == 0
+    else:
+        assert plan.threads == kf.GRID_THREADS
+        assert plan.slots in kf.SLOTS + (0,)
+        assert plan.resident == min(plan.slice, plan.smem_slots * plan.threads)
+        # At D=3 every slot's coordinates in shared memory where they fit.
+        fit = kf._smem_slots(D, _SMEM, plan.threads)
+        all_fit = D == 3 and 0 < plan.slots <= fit
+        assert plan.smem_slots == (plan.slots if all_fit else min(S, fit))
+    assert plan.tier == ("global" if plan.slots == 0 else
+                         "registers" if plan.streamed else "resident")
+
+
+@pytest.mark.parametrize("D", [1, 3, 16])
+@pytest.mark.parametrize("edge", _EDGES)
+def test_grid_plan_covers_each_point_once(D, edge):
+    """At and around each capacity of the grid kernel's plan."""
+    P = _edge_P(D, edge)
+    _check_plan(P, D, kf._grid_plan(1, P, D, _SMS, _SMEM))
+
+
+@pytest.mark.parametrize("P", [8 * _SMS, 2048 * _SMS, 2048 * _SMS + 1,
+                               8192 * _SMS, 8192 * _SMS + 1])
+def test_grid_plan_register_coordinates(P):
+    """At D=3 slices of up to 2048 points take 256 threads with 8 slots,
+    up to 8192 points 512 threads with 16, both with coordinates in
+    registers; past that 1024 threads with coordinates in shared memory."""
+    plan = kf._grid_plan(1, P, 3, _SMS, _SMEM)
+    _check_plan(P, 3, plan)
+    slice_ = -(-P // _SMS)
+    want = (256, 8) if slice_ <= 2048 else (512, 16) if slice_ <= 8192 else (1024, 16)
+    assert (plan.threads, plan.slots) == want and plan.tier == "resident"
+
+
+@pytest.mark.parametrize("D", [1, 3, 16])
+def test_grid_plan_tiers_change_at_the_capacities(D, monkeypatch):
+    res, reg = _caps(D)
+    tier = lambda P: kf._grid_plan(1, P, D, _SMS, _SMEM).tier  # noqa: E731
+    assert tier(1) == tier(res) == "resident"
+    assert tier(res + 1) == ("registers" if reg > res else "global")
+    if reg > res:
+        assert tier(reg - 1) == tier(reg) == "registers"
+    assert tier(reg + 1) == tier(6_000_000) == "global"
+    # The resident cap: whole slots of 1024 points in shared memory, or the
+    # 8192 points whose coordinates registers hold at D=3.
+    smem_points = (_SMEM - 4 * D) // (4 * D * 1024) * 1024
+    assert res == _SMS * min(max(smem_points, 8192 if D == 3 else 0), 32 * 1024)
+    assert reg == _SMS * 32 * 1024
+    # fps_limits reports the same capacities the plan follows.
+    monkeypatch.setattr(kf, "_card", lambda index: (_SMS, _SMEM))
+    assert kf.fps_limits(D, "cuda:0") == (_SMEM // (4 * (D + 1)), res)
+
+
+def test_grid_plan_refuses_too_many_blocks():
+    with pytest.raises(ValueError):
+        kf._grid_plan(1, 10, 3, kf.MAX_GRID_BLOCKS + 1, _SMEM)
+
+
+def test_route_and_wrappers_launch_or_raise(monkeypatch):
     """On the CPU every route runs the plain twin; a tensor that is neither
-    CPU nor CUDA raises, and no CPU tensor reaches a kernel."""
+    CPU nor CUDA raises, and no CPU tensor reaches a kernel. On the card,
+    ``_route`` follows the capacities ``fps_limits`` reports."""
     assert ofps._route(torch.zeros((2, 10, 3))) is kf.fps_batched
+    limits = {3: (14464, 2433024), 16: (3403, 405504)}
+    monkeypatch.setattr(kf, "fps_limits", lambda D, device: limits[D])
+    for D, (block_max, resident_max) in limits.items():
+        for P, want in ((1, kf.fps_batched), (block_max, kf.fps_batched),
+                        (block_max + 1, kf.fps_resident),
+                        (resident_max, kf.fps_resident),
+                        (resident_max + 1, kf.fps_streaming),
+                        (6_000_000, kf.fps_streaming)):
+            card = types.SimpleNamespace(shape=(2, P, D), is_cuda=True,
+                                         device="cuda:0")
+            assert ofps._route(card) is want, (D, P)
     meta = torch.zeros((1, 4, 3), device="meta")
     ml = torch.zeros((1,), dtype=torch.int64, device="meta")
     for fn in (kf.fps_batched, kf.fps_resident, kf.fps_streaming):

@@ -7,15 +7,18 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
 Phase 1 builds the CUDA kernels from ``pytorch3d_pointops_tpu_torch/csrc``
 (five sources, one ``nvcc`` each, in parallel) into ``build/``, prints the
-registers and spills of every KNN and FPS kernel instance (and fails if one
-at D=3 spills), and prints the card's name and power limit. Phase 2 holds every
-kernel against its plain PyTorch twin on the card: ragged lengths, fully
-masked clouds, norms 1 and 2, D in {3, 16}, K in {1, 8, 16, 64, 100} (KNN,
-distances bit-equal, under the default launch plan and, at sizes that are
-no multiple of a block, tile or group, under every plan; then a 20,000 x
-20,000 cloud with distance-0 ties under every plan) and {1, 32, 100, 500}
-(ball query), points on a 1/8 grid so that ties and ball boundaries are
-real, every FPS entry point with per-cloud K (K past the length and past the
+registers and spills of every KNN, chamfer NN and FPS kernel instance (and
+fails if one at D=3 spills), and prints the card's name and power limit.
+Phase 2 holds every kernel against its plain PyTorch twin on the card:
+ragged lengths, fully masked clouds, norms 1 and 2, D in {3, 16}, K in {1,
+8, 16, 64, 100} (KNN, distances bit-equal, under the default launch plan
+and, at sizes that are no multiple of a block, tile or group, under every
+plan; then a 20,000 x 20,000 cloud with distance-0 ties under every plan)
+and {1, 32, 100, 500} (ball query), points on a 1/8 grid so that ties and
+ball boundaries are real, the chamfer NN kernel's D=3 instance at every
+pair of sizes in {1, 127, 129, 1,023, 1,025, 2,049} with lengths of 0, 1
+and mid-sub-tile on grid clouds and clouds with duplicated points
+(distances and indices equal), every FPS entry point with per-cloud K (K past the length and past the
 number of distinct points), explicit starts and an empty cloud, the FPS
 grid kernel at and around each capacity of its launch plan (the largest
 slice with coordinates in registers, resident and register caps +- 1, 6M
@@ -46,7 +49,8 @@ entry, FPS and ball indices equal; the north-star KNN on a 4,096-query
 subset; the large-cloud FPS indices), two backward runs for bit-equality,
 and times every kernel at the main path's shapes beside its plain twin, its
 bound and, for the scatter, ``index_add_``. Each timed launch is also held
-against its plain twin at that shape (indices equal, values within 1e-5)
+against its plain twin at that shape (indices equal, values within 1e-5;
+chamfer NN distances equal, in both norms)
 and the scatters run twice for bit-equality; each scatter's sort and
 segment sum are timed apart, launch by launch, as is a skewed scatter (one
 row of 100,000 entries), and config 2's backward scatters print their
@@ -245,6 +249,17 @@ def main() -> int:
         spilled = [k for k, (_, s) in fps_inst.items() if k[1] == 3 and s]
         require(len(fps_inst) == 11 and not spilled,
                 f"fps instances {sorted(fps_inst)}; D=3 spills: {spilled}")
+    cham_log = os.path.join(_build.BUILD_DIR, "chamfer_nn.ptxas.log")
+    if os.path.exists(cham_log):
+        with open(cham_log) as f:
+            # nn_bidir_kernel<DIM, NORM>: DIM 3 is the D = 3 instance, 0 any D.
+            cham_inst = kernel_instances(f.read(), "nn_bidir_kernel")
+        print("  nn_bidir_kernel instances <DIM,NORM> (registers, spill bytes): "
+              + " ".join(f"<{k[0]},{k[1]}>:{regs}r{f'+{spill}s' if spill else ''}"
+                         for k, (regs, spill) in sorted(cham_inst.items())))
+        spilled = [k for k, (_, s) in cham_inst.items() if k[0] == 3 and s]
+        require(len(cham_inst) == 4 and not spilled,
+                f"nn_bidir_kernel instances {sorted(cham_inst)}; D=3 spills: {spilled}")
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {gpu_line()}")
 
     stats = {k: {"err": 0.0} for k in ("knn", "chamfer", "rows", "k1", "ball",
@@ -253,6 +268,20 @@ def main() -> int:
 
     def note_err(key, err):
         stats[key]["err"] = max(stats[key]["err"], float(err))
+
+    def check_chamfer(x, y, l1, l2, norm, what):
+        """The chamfer NN kernel against its plain twin: distances and
+        indices equal in both directions. Returns the kernel's output."""
+        outk = kc.chamfer_nn_cuda(x, y, l1, l2, norm)
+        outp = kc.chamfer_nn_plain(x, y, l1, l2, norm)
+        torch.cuda.synchronize()
+        for a, b in ((outk[0], outp[0]), (outk[2], outp[2])):
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            note_err("chamfer", (a[fin] - b[fin]).abs().max().item() if fin.any() else 0.0)
+            require(torch.equal(a, b), f"{what}: dists")
+        require(torch.equal(outk[1], outp[1]) and torch.equal(outk[3], outp[3]),
+                f"{what}: idx")
+        return outk
 
     # ---------------- phase 2: each kernel against its twin ----------------
     lengths1 = T(np.array([700, 333, 700, 0]), torch.int64)
@@ -297,18 +326,40 @@ def main() -> int:
                  T(np.array([2500, 1777]), torch.int64),
                  T(np.array([2300, 2600]), torch.int64)),
             ):
-                outk = kc.chamfer_nn_cuda(x, y, l1, l2, norm)
-                outp = kc.chamfer_nn_plain(x, y, l1, l2, norm)
-                torch.cuda.synchronize()
-                for a, b in ((outk[0], outp[0]), (outk[2], outp[2])):
-                    require(torch.equal(torch.isinf(a), torch.isinf(b)),
-                            f"chamfer_nn D={D} norm={norm}: inf pattern")
-                    fin = torch.isfinite(a)
-                    err = (a[fin] - b[fin]).abs().max().item() if fin.any() else 0.0
-                    note_err("chamfer", err)
-                    require(err <= TOL, f"chamfer_nn D={D} norm={norm}: err {err}")
-                require(torch.equal(outk[1], outp[1]) and torch.equal(outk[3], outp[3]),
-                        f"chamfer_nn D={D} norm={norm}: idx")
+                check_chamfer(x, y, l1, l2, norm, f"chamfer_nn D={D} norm={norm}")
+    # The chamfer kernel's D = 3 instance at the edges of its sub-tiles (128
+    # points) and chunks (1,024): P1 and P2 in {1, 127, 129, 1,023, 1,025,
+    # 2,049}; per pair of clouds full lengths, a length of 1, a length that
+    # ends mid-sub-tile, or 0; grid clouds (exact ties everywhere) and
+    # Gaussian clouds where a tenth of the points copy others; both norms.
+    # The sweep draws from its own generator, so the main paths' inputs do
+    # not depend on it.
+    erng = np.random.default_rng(args.seed + 1)
+
+    def dup_points(N, P):
+        a = erng.normal(size=(N, P, 3)).astype(np.float32)
+        k = P // 10
+        for i in range(N):
+            a[i, erng.choice(P, size=k, replace=False)] = a[i, erng.integers(0, P, size=k)]
+        return a
+
+    def edge_lengths(P, order):
+        mid = min(P, P // 2 + 5)  # 5 points into a sub-tile, unless P is tiny
+        return T(np.array([P, 1, mid, 0, P])[order], torch.int64)
+
+    edge_sizes = (1, 127, 129, 1023, 1025, 2049)
+    for P1e in edge_sizes:
+        for P2e in edge_sizes:
+            l1 = edge_lengths(P1e, [0, 1, 2, 3, 4])
+            l2 = edge_lengths(P2e, [0, 2, 1, 4, 3])
+            for grid in (True, False):
+                x = T(grid_points(erng, (5, P1e, 3)) if grid else dup_points(5, P1e))
+                y = T(grid_points(erng, (5, P2e, 3)) if grid else dup_points(5, P2e))
+                for norm in (1, 2):
+                    check_chamfer(x, y, l1, l2, norm, f"chamfer_nn D=3 edges P1={P1e} "
+                                  f"P2={P2e} grid={grid} norm={norm}")
+    print(f"  chamfer_nn D=3 edges: {len(edge_sizes) ** 2 * 4} calls of 5 clouds "
+          "equal to the plain twin (distances and indices)")
     # Distance-0 ties at scale: 20,000 Gaussian queries against 20,000
     # points, K=16, where every fifth query is a copy of a candidate and a
     # tenth of the candidates copy another, under every plan (each Q, block
@@ -736,17 +787,8 @@ def main() -> int:
     x3 = src0.points_padded()
     y3 = tgt.points_padded()
     l3x, l3y = src0.num_points_per_cloud(), tgt.num_points_per_cloud()
-    outk = kc.chamfer_nn_cuda(x3, y3, l3x, l3y, 2)
-    outp = kc.chamfer_nn_plain(x3, y3, l3x, l3y, 2)
-    for a, b, ia, ib in ((outk[0], outp[0], outk[1], outp[1]),
-                         (outk[2], outp[2], outk[3], outp[3])):
-        require(torch.equal(torch.isinf(a), torch.isinf(b)),
-                "chamfer_nn config 3: inf pattern")
-        fin = torch.isfinite(a)
-        err = (a[fin] - b[fin]).abs().max().item()
-        note_err("chamfer", err)
-        require(err <= TOL, f"chamfer_nn config 3: err {err}")
-        require(torch.equal(ia, ib), "chamfer_nn config 3: idx")
+    check_chamfer(x3, y3, l3x, l3y, 1, "chamfer_nn config 3 norm=1")
+    outk = check_chamfer(x3, y3, l3x, l3y, 2, "chamfer_nn config 3 norm=2")
     ms = cuda_ms(lambda: kc.chamfer_nn_cuda(x3, y3, l3x, l3y, 2), reps=10)
     plain_ms = cuda_ms(lambda: kc.chamfer_nn_plain(x3, y3, l3x, l3y, 2), reps=3)
     pairs = int((l3x * l3y).sum())

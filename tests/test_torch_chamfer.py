@@ -170,30 +170,60 @@ def test_chamfer_pointclouds_input_with_features():
     np.testing.assert_allclose(p.grad.numpy(), np.asarray(gref), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("norm", [1, 2])
-def test_nn_plain_twin_matches_pallas_kernel(norm):
+def _dup_cloud(rng, N, P):
+    """Gaussian points where a tenth of each cloud copies other points."""
+    a = rng.normal(size=(N, P, 3)).astype(np.float32)
+    k = max(P // 10, 1)
+    for n in range(N):
+        a[n, rng.choice(P, size=k, replace=False)] = a[n, rng.integers(0, P, size=k)]
+    return a
+
+
+# (seed, P1, P2, lengths1, lengths2, grid, norm): lengths of 0, 1 and P - 1,
+# grid clouds full of exact ties, clouds with duplicated points, and sizes
+# that are no multiple of 16 (the TPU kernel's x tile) or of 128 (its y
+# tile). The first two cases, one per norm, keep the ids "1" and "2".
+NN_SWEEP = [
+    pytest.param(9, 20, 40, [20, 13, 0], [0, 29, 40], True, 1, id="1"),
+    pytest.param(9, 20, 40, [20, 13, 0], [0, 29, 40], True, 2, id="2"),
+    (11, 20, 37, [0, 20, 5], [37, 0, 36], True, 2),
+    (12, 21, 40, [1, 21, 20], [40, 1, 1], False, 1),
+    (13, 33, 47, [32, 33, 1], [46, 47, 0], True, 1),
+    (14, 40, 130, [40, 29, 39], [130, 77, 129], True, 2),
+    (15, 17, 129, [17, 9, 16], [128, 129, 2], False, 2),
+    (16, 17, 129, [16, 17, 0], [129, 1, 128], True, 1),
+    (17, 50, 61, [50, 49, 1], [61, 60, 30], False, 1),
+    (18, 45, 200, [44, 45, 45], [199, 200, 0], False, 2),
+]
+
+
+@pytest.mark.parametrize("seed,P1,P2,l1,l2,grid,norm", NN_SWEEP)
+def test_nn_plain_twin_matches_pallas_kernel(seed, P1, P2, l1, l2, grid, norm):
     """The kernel module's plain twin against the TPU kernel in interpret
-    mode: both directions, lowest index on the grid's ties, and (inf, 0) for
-    a fully masked side."""
-    x, y, _, _ = _clouds(9, N=3, P1=20, P2=40, grid=True)
-    l1, l2 = np.array([20, 13, 0]), np.array([0, 29, 40])
+    mode, a seeded sweep over every point of every cloud, padded and empty
+    ones included: both directions, distances within TOL (inf where the
+    kernel gives inf), indices equal (the lowest on ties), and (inf, 0)
+    where a point has no valid partner or lies past its length."""
+    rng = np.random.default_rng(seed)
+    if grid:
+        x = rng.integers(-2, 3, size=(3, P1, 3)).astype(np.float32) / 8
+        y = rng.integers(-2, 3, size=(3, P2, 3)).astype(np.float32) / 8
+    else:
+        x, y = _dup_cloud(rng, 3, P1), _dup_cloud(rng, 3, P2)
+    l1, l2 = np.array(l1), np.array(l2)
     ref = chamfer_nn_bidirectional_pallas(
         jnp.asarray(x), jnp.asarray(y), jnp.asarray(l1), jnp.asarray(l2), norm,
         tile_p1=16, tile_p2=128, interpret=True,
     )
     out = kc.chamfer_nn_bidirectional(_t(x), _t(y), _t(l1), _t(l2), norm)
-    for side, (lx, P) in ((0, (l1, 20)), (2, (l2, 40))):
-        other = l2 if side == 0 else l1
-        for n in range(3):
-            rows = slice(0, int(lx[n])) if other[n] > 0 else slice(0, 0)
-            np.testing.assert_allclose(
-                out[side].numpy()[n, rows], np.asarray(ref[side])[n, rows], atol=TOL
-            )
-            np.testing.assert_array_equal(
-                out[side + 1].numpy()[n, rows], np.asarray(ref[side + 1])[n, rows]
-            )
-    assert np.isinf(out[0].numpy()[0]).all() and (out[1].numpy()[0] == 0).all()
-    assert np.isinf(out[2].numpy()[2]).all() and (out[3].numpy()[2] == 0).all()
+    for side in (0, 2):
+        np.testing.assert_allclose(out[side].numpy(), np.asarray(ref[side]), atol=TOL)
+        np.testing.assert_array_equal(out[side + 1].numpy(), np.asarray(ref[side + 1]))
+    for side, lx, ly in ((0, l1, l2), (2, l2, l1)):
+        P = out[side].shape[1]
+        dead = (np.arange(P)[None] >= lx[:, None]) | (ly[:, None] == 0)
+        assert np.isinf(out[side].numpy()[dead]).all()
+        assert (out[side + 1].numpy()[dead] == 0).all()
 
 
 def test_k1_backward_matches_knn_backward():

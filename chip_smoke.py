@@ -7,22 +7,28 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
 Phase 1 builds the CUDA kernels from ``pytorch3d_pointops_tpu_torch/csrc``
 (five sources, one ``nvcc`` each, in parallel) into ``build/``, prints the
-registers and spills of every KNN, chamfer NN and FPS kernel instance (and
-fails if one at D=3 spills), and prints the card's name and power limit.
+registers and spills of every KNN, chamfer NN, FPS and ball query kernel
+instance (and fails if one at D=3 spills), and prints the card's name and
+power limit.
 Phase 2 holds every kernel against its plain PyTorch twin on the card:
 ragged lengths, fully masked clouds, norms 1 and 2, D in {3, 16}, K in {1,
 8, 16, 64, 100} (KNN, distances bit-equal, under the default launch plan
 and, at sizes that are no multiple of a block, tile or group, under every
 plan; then a 20,000 x 20,000 cloud with distance-0 ties under every plan)
 and {1, 32, 100, 500} (ball query), points on a 1/8 grid so that ties and
-ball boundaries are real, the chamfer NN kernel's D=3 instance at every
+ball boundaries are real, the ball query at the edges of its warp per
+query (lengths2 of 31, 32, 33 and one past a staged tile, 37 queries, K in
+{1, 31, 32, 33, 500}, clouds whose points all coincide, D in {3, 5, 16}),
+the chamfer NN kernel's D=3 instance at every
 pair of sizes in {1, 127, 129, 1,023, 1,025, 2,049} with lengths of 0, 1
 and mid-sub-tile on grid clouds and clouds with duplicated points
 (distances and indices equal), every FPS entry point with per-cloud K (K past the length and past the
 number of distinct points), explicit starts and an empty cloud, the FPS
-grid kernel at and around each capacity of its launch plan (the largest
-slice with coordinates in registers, resident and register caps +- 1, 6M
-points, D=16 and D=1 past their caps), and the
+block kernel under every block plan at each plan's capacity - 1, + 0 and
++ 1 up to the block cap and at the cap (D = 3, 16 and 1; lengths 0, 1 and
+17), the FPS grid kernel at and around each capacity of its launch plan
+(the largest slice with coordinates in registers, resident and register
+caps +- 1, 6M points, D=16 and D=1 past their caps), and the
 scatter: its radix sort (``sort_plan``) equal to the stable argsort
 (``segment_plan``) at one, two and three passes, on uniform targets and on
 targets that crowd 16 rows, and both entry points run twice and compared
@@ -43,7 +49,10 @@ set to 0 just before and read just after:
   ``sample_farthest_points`` on one cloud of 1,000,000 points (K=1024) and
   one of 4,000,000 points (K=512), which route to the two grid FPS kernels.
 
-It then checks each path against the plain path on the card (config 3 and
+A ``torch.profiler`` trace of one config 2 and one config 3 step gives the
+device's busy time beside the wall time (the idle share) and the longest
+kernels (``profile_step.device_share``). It then checks each path against
+the plain path on the card (config 3 and
 config 2 losses within rel 1e-5, gradients within 1e-5 of their largest
 entry, FPS and ball indices equal; the north-star KNN on a 4,096-query
 subset; the large-cloud FPS indices), two backward runs for bit-equality,
@@ -55,8 +64,8 @@ and the scatters run twice for bit-equality; each scatter's sort and
 segment sum are timed apart, launch by launch, as is a skewed scatter (one
 row of 100,000 entries), and config 2's backward scatters print their
 longest segment, and the FPS grid round's fixed cost is timed on a cloud of
-8 points a block. The line before the last is
-one JSON object with a record per kernel; the last line is
+8 points a block, the block round's on 32 clouds of 512 points. The line
+before the last is one JSON object with a record per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line. Without CUDA it exits 1 at once.
 """
@@ -198,6 +207,7 @@ def main() -> int:
     from pytorch3d_pointops_tpu_torch.kernels import knn as kk
     from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
     from pytorch3d_pointops_tpu_torch.ops.knn import _apply_pad_conventions
+    from pytorch3d_pointops_tpu_torch.profile_step import device_share
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -240,15 +250,27 @@ def main() -> int:
         with open(fps_log) as f:
             log = f.read()
         # fps_grid_kernel<DIM, SLOTS, THREADS> (csrc/fps.cu launch_grid_plan:
-        # 5 at D=3, 4 at any D) and fps_block_kernel<DIM>; DIM 0 is any D.
+        # 5 at D=3, 4 at any D) and fps_block_kernel<DIM, SLOTS, THREADS>
+        # (launch_block_plan: 4 at D=3, 3 at any D); DIM 0 is any D.
         fps_inst = {(name, *k): v for name in ("fps_grid_kernel", "fps_block_kernel")
                     for k, v in kernel_instances(log, name).items()}
         print("  fps instances (registers, spill bytes): " + " ".join(
             f"{name[4:-7]}<{','.join(map(str, k))}>:{regs}r{f'+{spill}s' if spill else ''}"
             for (name, *k), (regs, spill) in sorted(fps_inst.items())))
         spilled = [k for k, (_, s) in fps_inst.items() if k[1] == 3 and s]
-        require(len(fps_inst) == 11 and not spilled,
+        require(len(fps_inst) == 16 and not spilled,
                 f"fps instances {sorted(fps_inst)}; D=3 spills: {spilled}")
+    bq_log = os.path.join(_build.BUILD_DIR, "ball_query.ptxas.log")
+    if os.path.exists(bq_log):
+        with open(bq_log) as f:
+            # ball_query_kernel<DIM>: 3, 8 (D <= 8) and 0 (any D).
+            bq_inst = kernel_instances(f.read(), "ball_query_kernel")
+        print("  ball_query_kernel instances <DIM> (registers, spill bytes): "
+              + " ".join(f"<{k[0]}>:{regs}r{f'+{spill}s' if spill else ''}"
+                         for k, (regs, spill) in sorted(bq_inst.items())))
+        spilled = [k for k, (_, s) in bq_inst.items() if k[0] == 3 and s]
+        require(len(bq_inst) == 3 and not spilled,
+                f"ball_query_kernel instances {sorted(bq_inst)}; D=3 spills: {spilled}")
     cham_log = os.path.join(_build.BUILD_DIR, "chamfer_nn.ptxas.log")
     if os.path.exists(cham_log):
         with open(cham_log) as f:
@@ -442,6 +464,40 @@ def main() -> int:
                 require(torch.equal(ik, ip), f"{what}: idx")
                 require(err <= TOL, f"{what}: err {err}")
                 require((ik >= 0).any(), f"{what}: no point in any ball")
+    # Ball query at the edges of the warp-per-query design (csrc/ball_query.cu):
+    # lengths2 of 31, 32 and 33 (around one ballot) and one past a staged
+    # tile, 37 queries (no multiple of a block's 16), K around a ballot and
+    # past every length; clouds whose points all coincide (every candidate
+    # a hit, so the K-th hit falls mid-ballot) and grid clouds; D = 3, 5
+    # (the D <= 8 instance) and 16.
+    for D in (3, 5, 16):
+        tile = 12288 // D  # csrc/ball_query.cu kTileFloats / D
+        P1e, P2e = 37, tile + 1
+        el1 = T(np.array([37, 20, 0, 37]), torch.int64)
+        el2 = T(np.array([31, 32, 33, tile + 1]), torch.int64)
+        for dup in (True, False):
+            if dup:
+                centre = grid_points(erng, (4, 1, D))
+                ref_pts = np.repeat(centre, P2e, axis=1)
+                q = np.repeat(centre, P1e, axis=1)
+                q[:, 1::2] += np.float32(1 / 8)  # half the queries one step away
+            else:
+                q, ref_pts = grid_points(erng, (4, P1e, D)), grid_points(erng, (4, P2e, D))
+            q, ref_pts = T(q), T(ref_pts)
+            r2 = kb.squared_radius(0.25 if D == 3 else 0.75)
+            for K in (1, 31, 32, 33, 500):
+                dk, ik = kb.ball_query_cuda(q, ref_pts, el1, el2, K, r2)
+                dp, ip = kb.ball_query_plain(q, ref_pts, el1, el2, K, r2)
+                torch.cuda.synchronize()
+                err = (dk - dp).abs().max().item()
+                note_err("ball", err)
+                what = f"ball_query edges D={D} dup={dup} K={K}"
+                require(torch.equal(ik, ip), f"{what}: idx")
+                require(err <= TOL, f"{what}: err {err}")
+                if dup:
+                    require(bool((ik[0, 0, :min(K, 31)] >= 0).all()), f"{what}: not all hits")
+    print("  ball_query edges: lengths2 31/32/33/tile+1, 37 queries, K in {1, 31, 32, "
+          "33, 500}, D in {3, 5, 16}: idx equal to the plain twin")
     # FPS: every entry point called directly. Ragged lengths with a 0, K
     # past the length, explicit starts; on the grid (3^D distinct points at
     # most, 27 at D=3) K=100 runs past the distinct points into all-zero
@@ -465,6 +521,37 @@ def main() -> int:
                     torch.cuda.synchronize()
                     require(torch.equal(out, ref),
                             f"{wrapper.__name__} D={D} grid={grid} {N}x{P}: idx")
+    # The block kernel (kernels/fps.py _block_plan) at each plan's capacity
+    # T * SLOTS - 1, T * SLOTS and + 1 up to the block cap fps_limits(D)[0],
+    # and at the cap, under every plan that holds the cloud: one cloud of P
+    # points, and five with lengths P, 0, 1, 17 and P - 1, explicit starts
+    # and per-cloud K; grid clouds (3^D distinct points: K=64 runs past them
+    # at D=1 and 3) and Gaussian ones; D = 3, 16 and 1.
+    block_edges = []
+    for D in (3, 16, 1):
+        cap = kf.fps_limits(D, dev)[0]
+        plans = kf.BLOCK_PLANS[3 if D == 3 else 0]
+        sizes = sorted({p for t, s in plans for p in (t * s - 1, t * s, t * s + 1)
+                        if p <= cap} | {cap})
+        for P in sizes:
+            for N, grid in ((1, False), (5, True), (5, False)):
+                gen_pts = (erng.integers(0, 3, size=(N, P, D)).astype(np.float32) / 8
+                           if grid else erng.normal(size=(N, P, D)).astype(np.float32))
+                pts = T(gen_pts)
+                lens, Ks, starts = (T(np.array(a)[:N], torch.int64) for a in (
+                    [P, 0, 1, 17, P - 1], [64, 5, 5, 30, 40], [P // 3, 0, 0, 16, P - 2]))
+                ref = kf.fps_plain(pts, lens, Ks, starts, 64)
+                for t, sl in plans:
+                    if t * sl < P:
+                        continue
+                    plan = kf._block_plan(P, D)._replace(threads=t, slots=sl)
+                    out = kf.fps_batched(pts, lens, Ks, starts, 64, _plan=plan)
+                    torch.cuda.synchronize()
+                    require(torch.equal(out, ref), f"fps_batched D={D} {N}x{P} grid={grid} "
+                            f"t{t}/s{sl}: idx")
+        block_edges.append(f"D={D} P={sizes}")
+    print(f"  fps block plans at their edges, every plan equal to fps_plain: "
+          f"{'; '.join(block_edges)}")
     # The grid kernel's tiers (kernels/fps.py _grid_plan): one cloud at and
     # around the largest slice whose coordinates registers hold, the
     # resident and the register capacities, D=3 (the register cap at D=1
@@ -711,6 +798,12 @@ def main() -> int:
     require(torch.isfinite(grad2).all() and grad2.abs().max() > 0,
             "config 2 gradient not finite or all zero")
 
+    # Device time of one config 2 and one config 3 step (torch.profiler): the
+    # sum of the step's device activities beside its wall time, the share of
+    # the wall time the device was idle, and the longest kernels.
+    device_share("config 2", lambda: group_step(pts2))
+    device_share("config 3", lambda: cham_step(p.detach().clone().requires_grad_(True)))
+
     # One config 2 step against the plain path, and two bit-equal backwards.
     loss2b, fidx2b, g2b, grad2b = group_step(pts2)
     require(torch.equal(grad2, grad2b), "config 2 backward not bit-equal")
@@ -919,6 +1012,24 @@ def main() -> int:
             launches=launches2[name], max_abs_err=stats[name]["err"],
             ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None,
         ))
+    print(f"  fps_batched plan at config 2: {kf.block_plan_name(kf._block_plan(P2c, 3))}")
+    # The fixed cost of a block round: 32 clouds of 512 points at K=512 (511
+    # rounds; 32 points would allow 31, as k_n = min(K, length)). A D=3 plan
+    # visits every slot whatever the length, so this is a round's cost under
+    # the plan a cloud of up to 2,048 points takes. The latency is the time
+    # beyond the same call at K=1 (no rounds: the host's part of a call
+    # cancels), over 511.
+    tiny_b = T(rng.normal(size=(32, 512, 3)).astype(np.float32))
+    bl512 = T(np.full(32, 512), torch.int64)
+    b0 = T(np.zeros(32), torch.int64)
+    bargs = {k: (tiny_b, bl512, T(np.full(32, k), torch.int64), b0, k) for k in (1, 512)}
+    require(torch.equal(kf.fps_batched(*bargs[512]), kf.fps_plain(*bargs[512])),
+            "fps_batched on the tiny clouds: idx")
+    block_ms = {k: cuda_ms(lambda: kf.fps_batched(*a), reps=20) for k, a in bargs.items()}
+    block_round_us = (block_ms[512] - block_ms[1]) * 1e3 / 511
+    print(f"  fps block round latency: {block_round_us:.3f} us a round (fps_batched "
+          f"on 32 x 512 points: {block_ms[512]:.4f} ms at K=512, 511 rounds, against "
+          f"{block_ms[1]:.4f} ms at K=1; {kf.block_plan_name(kf._block_plan(512, 3))})")
     # The fixed cost of a grid round: about 8 points a block, K=1024.
     tiny = T(rng.normal(size=(1, 8 * sms, 3)).astype(np.float32))
     targs = (tiny, T(np.array([8 * sms]), torch.int64),

@@ -9,11 +9,13 @@
 // fps_pallas_chunked (_fps_chunked_kernel, a cloud streamed from HBM every
 // round). Two kernels here back the three entry points:
 //
-// * fps_block_kernel (fps_batched): one block per cloud. The cloud's
-//   coordinates (structure of arrays) and its running min-distance live in
-//   shared memory, (D+1)*4 bytes a point; a round updates the min-distances
-//   against the last selected point and takes a block argmax on
-//   (value, index) pairs by warp shuffles and then shared memory.
+// * fps_block_kernel (fps_batched): one block per cloud, under a block plan
+//   (kernels/fps.py _block_plan: T threads with SLOTS slots each). Each
+//   thread keeps its points' min-distances in registers and, at D=3 up to
+//   8192 points, their coordinates too; otherwise the coordinates sit in
+//   shared memory. A round is one block barrier: the warps' best records
+//   {key, coordinates} meet in shared memory, two buffers by the round's
+//   parity, and every warp reduces them itself.
 // * fps_grid_kernel (fps_resident, fps_streaming): one block on every SM,
 //   all on one cloud at a time, for clouds one block cannot hold. Block b
 //   owns the contiguous slice [b * slice, (b + 1) * slice) of the cloud;
@@ -57,9 +59,9 @@
 //
 // Bound on the card: K sequential rounds, each a pass over the cloud with
 // 3*D+2 float32 operations a point (D subtractions, multiplies and adds, a
-// min and a compare) and a reduction whose latency (block barriers, and
+// min and a compare) and a reduction whose latency (a block barrier, and
 // one publication through L2) no amount of parallelism hides. The block
-// kernel pays only block barriers but uses one SM per cloud; the grid
+// kernel pays one block barrier a round but uses one SM per cloud; the grid
 // kernel spreads a cloud over every SM and pays the L2 round trip.
 //
 // Ties: the distance to the selected set is not masked for selected points
@@ -78,71 +80,11 @@
 
 namespace {
 
-constexpr int kThreads = 512;           // threads of a fps_block_kernel block
 constexpr int kMaxGridBlocks = 256;     // records a round: at most 8 polling warps
 constexpr int kStaticSmem = 1024;       // shared memory kept for static arrays
 constexpr unsigned kMaxPolls = 1u << 22;  // give up on a record rather than hang
 constexpr int kRecord = 4;  // 64-bit words of a block's record: key, x, y, z
 constexpr int kCopies = 4;  // copies of each record; block b reads copy b % 4
-
-// The (value, index) order of the argmax: the larger value wins, and on
-// equal values the smaller index.
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
-
-// Block-wide argmax of one (v, i) per thread; every thread leaves with the
-// winning pair. s_v and s_i hold 33 entries. Two barriers: the warps'
-// results go through slots 0..31, the winner through slot 32.
-__device__ __forceinline__ void block_argmax(float& v, int& i, float* s_v,
-                                             int* s_i) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  warp_argmax(v, i);
-  if (lane == 0) {
-    s_v[warp] = v;
-    s_i[warp] = i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < kThreads / 32 ? s_v[lane] : -INFINITY;
-    i = lane < kThreads / 32 ? s_i[lane] : INT_MAX;
-    warp_argmax(v, i);
-    if (lane == 0) {
-      s_v[32] = v;
-      s_i[32] = i;
-    }
-  }
-  __syncthreads();
-  v = s_v[32];
-  i = s_i[32];
-}
-
-// Squared distance of the point x[d * xs] to the selected point s[d * ss],
-// summed in order d = 0..D-1.
-template <int DIM>
-__device__ __forceinline__ float sq_dist(const float* x, int64_t xs,
-                                         const float* s, int ss, int D) {
-  float dist = 0.f;
-#pragma unroll
-  for (int d = 0; d < (DIM > 0 ? DIM : D); ++d) {
-    const float diff = __fsub_rn(x[d * xs], s[d * ss]);
-    dist = __fadd_rn(dist, __fmul_rn(diff, diff));
-  }
-  return dist;
-}
 
 // A cloud's constants: its length clamped to P, its number of selected
 // points k_n (0 when it selects nothing), and its start index, clamped into
@@ -181,84 +123,11 @@ __device__ __forceinline__ void write_pads(int64_t* o, const Cloud& c,
   }
 }
 
-template <int DIM>
-__global__ void __launch_bounds__(kThreads) fps_block_kernel(
-    const float* __restrict__ points, const int64_t* __restrict__ lengths,
-    const int64_t* __restrict__ Ks, const int64_t* __restrict__ starts, int P,
-    int D, int max_K, int64_t* __restrict__ out) {
-  extern __shared__ float smem[];  // x (D, P), then min-distance (P)
-  __shared__ float s_v[33];
-  __shared__ int s_i[33];
-  const int n = blockIdx.x;
-  const Cloud c = cloud_of(lengths, Ks, starts, n, P, max_K);
-  int64_t* o = out + (int64_t)n * max_K;
-  write_pads(o, c, max_K);
-  if (c.k_n <= 1) return;
-
-  float* xs = smem;
-  float* md = smem + (int64_t)D * P;
-  const float* pn = points + (int64_t)n * P * D;
-  for (int e = threadIdx.x; e < c.L * D; e += kThreads) {
-    const int p = e / D;
-    xs[(int64_t)(e - p * D) * P + p] = pn[e];
-  }
-  for (int p = threadIdx.x; p < c.L; p += kThreads) md[p] = INFINITY;
-  __syncthreads();
-
-  int last = c.start;
-  float sel[DIM > 0 ? DIM : 1];
-  for (int r = 1; r < c.k_n; ++r) {
-    const float* sp = xs + last;
-    int ss = P;
-    if (DIM > 0) {
-#pragma unroll
-      for (int d = 0; d < (DIM > 0 ? DIM : 1); ++d) sel[d] = sp[(int64_t)d * P];
-      sp = sel;
-      ss = 1;
-    }
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-    for (int p = threadIdx.x; p < c.L; p += kThreads) {
-      const float dist = sq_dist<DIM>(xs + p, P, sp, ss, D);
-      const float m = dist < md[p] ? dist : md[p];
-      md[p] = m;
-      if (m > bv) {  // p ascends within a thread: strict keeps the first
-        bv = m;
-        bi = p;
-      }
-    }
-    block_argmax(bv, bi, s_v, s_i);
-    last = bi;
-    if (threadIdx.x == 0) o[r] = last;
-  }
-}
-
-// ---- the grid kernel ------------------------------------------------------
-
-constexpr unsigned long long kTagBit = 1ull << 63;
-
-// Whether a grid thread keeps its points' coordinates in registers (DIM
-// known, coordinates and min-distances within half of the 65536 / threads
+// Whether a thread keeps its points' coordinates in registers (DIM known,
+// coordinates and min-distances within half of the 65536 / threads
 // registers a thread may have): 8192 points a block at D=3.
 __host__ __device__ constexpr bool reg_coords(int dim, int slots, int threads) {
   return dim > 0 && slots > 0 && (dim + 1) * slots * threads <= 32768;
-}
-
-// A record's words, read and written 16 bytes at a time at gpu scope
-// (through L2). Each word carries the round's tag, so a record torn
-// between rounds is never taken for a whole one.
-__device__ __forceinline__ void load_pair(const unsigned long long* p,
-                                          unsigned long long& a,
-                                          unsigned long long& b) {
-  asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];"
-               : "=l"(a), "=l"(b) : "l"(p) : "memory");
-}
-
-__device__ __forceinline__ void store_pair(unsigned long long* p,
-                                           unsigned long long a,
-                                           unsigned long long b) {
-  asm volatile("st.relaxed.gpu.global.v2.u64 [%0], {%1, %2};"
-               ::"l"(p), "l"(a), "l"(b) : "memory");
 }
 
 __device__ __forceinline__ unsigned long long warp_max_u64(unsigned long long w) {
@@ -268,7 +137,8 @@ __device__ __forceinline__ unsigned long long warp_max_u64(unsigned long long w)
   return ((unsigned long long)hi << 32) | lo;
 }
 
-// The key of point `index` at min-distance v >= 0 (no tag).
+// The key of point `index` at min-distance v >= 0 (no tag): the largest key
+// is the largest value with the lowest index.
 __device__ __forceinline__ unsigned long long key_of(float v, int index) {
   return ((unsigned long long)__float_as_uint(v) << 32) |
          (0xFFFFFFFFu - (unsigned)index);
@@ -286,20 +156,173 @@ __device__ __forceinline__ void warp_max_record(unsigned long long& key,
   key = m;
 }
 
-// Squared distance of the point x[d * xs] to sel[d], summed in order
-// d = 0..D-1, from the first term: 0 + t is t for every t = diff * diff
-// (never -0), so this is bit-equal to sq_dist.
+// Squared distance of the point x[d * xs] to the selected point sel[d * ss],
+// summed in order d = 0..D-1, from the first term: 0 + t is t for every
+// t = diff * diff (never -0), so this is bit-equal to the plain twin's sum
+// from 0.
 template <int DIM>
-__device__ __forceinline__ float grid_dist(const float* x, int xs,
-                                           const float* sel, int D) {
+__device__ __forceinline__ float sq_dist(const float* x, int xs,
+                                         const float* sel, int ss, int D) {
   float diff = __fsub_rn(x[0], sel[0]);
   float dist = __fmul_rn(diff, diff);
 #pragma unroll
   for (int d = 1; d < (DIM > 0 ? DIM : D); ++d) {
-    diff = __fsub_rn(x[(int64_t)d * xs], sel[d]);
+    diff = __fsub_rn(x[(int64_t)d * xs], sel[d * ss]);
     dist = __fadd_rn(dist, __fmul_rn(diff, diff));
   }
   return dist;
+}
+
+// ---- the block kernel -----------------------------------------------------
+
+// One block of T threads per cloud; point q is slot q / T of thread q % T,
+// and a plan (kernels/fps.py _block_plan) has T * SLOTS >= P. Each thread
+// keeps its SLOTS min-distances in registers (slots past the cloud at -inf)
+// and, at D=3 where reg_coords holds, its points' coordinates too;
+// otherwise the coordinates sit in shared memory as [d][q], with a row of
+// SLOTS * T points at D=3 (every slot staged, so the pass tests nothing) or
+// P at any D (the slots past the cloud are masked by its length).
+//
+// A round: every thread folds the selected point into its min-distances,
+// keeps its first maximum and that point's coordinates; each warp reduces
+// its keys with warp_max_record and lane 0 writes {key, coordinates} into
+// one of two record buffers, by the round's parity. After the round's one
+// barrier every warp reads all T / 32 records (a lane each) and reduces
+// them the same way, so each warp holds the winner's index and coordinates
+// without a second barrier. Round r + 2 writes a buffer only after every
+// warp has passed the barrier of round r + 1, which comes after its reads
+// of round r. At any D the records carry the key alone, and the winner's
+// coordinates are read from shared memory.
+template <int DIM, int SLOTS, int T>
+__global__ void __launch_bounds__(T, 1) fps_block_kernel(
+    const float* __restrict__ points, const int64_t* __restrict__ lengths,
+    const int64_t* __restrict__ Ks, const int64_t* __restrict__ starts, int P,
+    int D, int max_K, int64_t* __restrict__ out) {
+  constexpr int kD = DIM > 0 ? DIM : 1;
+  constexpr int kWarps = T / 32;
+  constexpr bool kRegCoords = reg_coords(DIM, SLOTS, T);
+  extern __shared__ float xs[];  // [d][q] coordinates that registers do not hold
+  __shared__ unsigned long long s_key[2][kWarps];
+  __shared__ float s_x[2][kD][kWarps];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n = blockIdx.x;
+  const Cloud c = cloud_of(lengths, Ks, starts, n, P, max_K);
+  int64_t* o = out + (int64_t)n * max_K;
+  write_pads(o, c, max_K);
+  if (c.k_n <= 1) return;
+
+  const float* pn = points + (int64_t)n * P * D;
+  const int ld = DIM > 0 ? SLOTS * T : P;  // row stride of xs
+  float md[SLOTS];
+  float xr[kRegCoords ? SLOTS : 1][kD];
+  float sel[kD];
+  if (DIM > 0) {
+    // Each thread stages its own points and reads no other's.
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      const int q = s * T + tid;
+      md[s] = q < c.L ? INFINITY : -INFINITY;
+#pragma unroll
+      for (int d = 0; d < kD; ++d) {
+        const float v = q < c.L ? pn[(int64_t)q * kD + d] : 0.f;
+        if constexpr (kRegCoords) {
+          xr[s][d] = v;
+        } else {
+          xs[d * ld + q] = v;
+        }
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < kD; ++d) sel[d] = pn[(int64_t)c.start * kD + d];
+  } else {
+    for (int e = tid; e < c.L * D; e += T) {
+      const int q = e / D;
+      xs[(e - q * D) * ld + q] = pn[e];
+    }
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) md[s] = s * T + tid < c.L ? INFINITY : -INFINITY;
+    __syncthreads();
+  }
+
+  int last = c.start;
+  for (int r = 1; r < c.k_n; ++r) {
+    // Fold the selected point in; keep this thread's first maximum.
+    float bv = 0.f;  // every min-distance of the cloud is >= 0
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      if (DIM == 0 && s * T + tid >= c.L) continue;  // the length mask
+      float dist;
+      if constexpr (kRegCoords) {
+        dist = sq_dist<DIM>(xr[s], 1, sel, 1, D);
+      } else if constexpr (DIM > 0) {
+        dist = sq_dist<DIM>(xs + s * T + tid, ld, sel, 1, D);
+      } else {
+        dist = sq_dist<DIM>(xs + s * T + tid, ld, xs + last, ld, D);
+      }
+      md[s] = fminf(dist, md[s]);
+      bv = fmaxf(bv, md[s]);
+    }
+    int fs = -1;  // its slot; none if the thread holds no point
+    float cx[kD];
+#pragma unroll
+    for (int d = 0; d < kD; ++d) cx[d] = 0.f;
+#pragma unroll
+    for (int s = SLOTS - 1; s >= 0; --s) {
+      if (md[s] == bv) {
+        fs = s;
+        if constexpr (kRegCoords) {
+#pragma unroll
+          for (int d = 0; d < kD; ++d) cx[d] = xr[s][d];
+        }
+      }
+    }
+    if constexpr (DIM > 0 && !kRegCoords) {
+      if (fs >= 0) {
+#pragma unroll
+        for (int d = 0; d < kD; ++d) cx[d] = xs[d * ld + fs * T + tid];
+      }
+    }
+    unsigned long long key = fs >= 0 ? key_of(bv, fs * T + tid) : 0ull;
+    warp_max_record<DIM>(key, cx);
+    const int buf = r & 1;
+    if (lane == 0) {
+      s_key[buf][warp] = key;
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) s_x[buf][d][warp] = cx[d];
+    }
+    __syncthreads();
+    key = lane < kWarps ? s_key[buf][lane] : 0ull;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) cx[d] = lane < kWarps ? s_x[buf][d][lane] : 0.f;
+    warp_max_record<DIM>(key, cx);
+    last = (int)(0xFFFFFFFFu - (unsigned)key);
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) sel[d] = cx[d];
+    if (tid == 0) o[r] = last;
+  }
+}
+
+// ---- the grid kernel ------------------------------------------------------
+
+constexpr unsigned long long kTagBit = 1ull << 63;
+
+// A record's words, read and written 16 bytes at a time at gpu scope
+// (through L2). Each word carries the round's tag, so a record torn
+// between rounds is never taken for a whole one.
+__device__ __forceinline__ void load_pair(const unsigned long long* p,
+                                          unsigned long long& a,
+                                          unsigned long long& b) {
+  asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];"
+               : "=l"(a), "=l"(b) : "l"(p) : "memory");
+}
+
+__device__ __forceinline__ void store_pair(unsigned long long* p,
+                                           unsigned long long a,
+                                           unsigned long long b) {
+  asm volatile("st.relaxed.gpu.global.v2.u64 [%0], {%1, %2};"
+               ::"l"(p), "l"(a), "l"(b) : "memory");
 }
 
 template <int DIM, int SLOTS, int T>
@@ -417,7 +440,7 @@ __global__ void __launch_bounds__(T, 1) fps_grid_kernel(
         // min-distance stays -inf (fminf(x, -inf) is -inf, NaN included).
 #pragma unroll
         for (int s = 0; s < kS; ++s) {
-          const float dist = grid_dist<DIM>(xs_t + (int64_t)s * DD * T, T, sp, D);
+          const float dist = sq_dist<DIM>(xs_t + (int64_t)s * DD * T, T, sp, 1, D);
           md[s] = fminf(dist, md[s]);
           bv = fmaxf(bv, md[s]);
         }
@@ -431,11 +454,11 @@ __global__ void __launch_bounds__(T, 1) fps_grid_kernel(
           if (s < slots) {
             float dist;
             if (kRegCoords) {
-              dist = grid_dist<DIM>(xr[s], 1, sp, D);
+              dist = sq_dist<DIM>(xr[s], 1, sp, 1, D);
             } else if (s < smem_slots) {
-              dist = grid_dist<DIM>(xs_t + (int64_t)s * DD * T, T, sp, D);
+              dist = sq_dist<DIM>(xs_t + (int64_t)s * DD * T, T, sp, 1, D);
             } else {
-              dist = grid_dist<DIM>(soa_t + (int64_t)s * DD * T, T, sp, D);
+              dist = sq_dist<DIM>(soa_t + (int64_t)s * DD * T, T, sp, 1, D);
             }
             md[s] = fminf(dist, md[s]);
             bv = fmaxf(bv, md[s]);
@@ -448,8 +471,8 @@ __global__ void __launch_bounds__(T, 1) fps_grid_kernel(
       } else {
         for (int s = 0; s < slots && s * T + tid < cnt; ++s) {
           const float dist =
-              s < smem_slots ? grid_dist<DIM>(xs_t + (int64_t)s * DD * T, T, sp, D)
-                             : grid_dist<DIM>(soa_t + (int64_t)s * DD * T, T, sp, D);
+              s < smem_slots ? sq_dist<DIM>(xs_t + (int64_t)s * DD * T, T, sp, 1, D)
+                             : sq_dist<DIM>(soa_t + (int64_t)s * DD * T, T, sp, 1, D);
           const float m = fminf(dist, md_t[(int64_t)s * T]);
           md_t[(int64_t)s * T] = m;
           if (m > bv || fs < 0) {  // s ascends: strict keeps the first
@@ -580,21 +603,53 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int DIM>
+template <int DIM, int SLOTS, int T>
 cudaError_t launch_block(const float* points, const int64_t* lengths,
                          const int64_t* Ks, const int64_t* starts, int N,
                          int P, int D, int max_K, int64_t* out,
                          cudaStream_t stream) {
-  int budget = 0;
-  cudaError_t err = (cudaError_t)smem_budget(&budget);
-  if (err != cudaSuccess) return err;
-  const size_t smem = (size_t)(D + 1) * P * sizeof(float);
-  if (smem > (size_t)budget) return cudaErrorInvalidValue;
-  err = allow_smem(fps_block_kernel<DIM>, smem);
-  if (err != cudaSuccess) return err;
-  fps_block_kernel<DIM><<<N, kThreads, smem, stream>>>(points, lengths, Ks,
-                                                       starts, P, D, max_K, out);
+  auto kernel = fps_block_kernel<DIM, SLOTS, T>;
+  // The coordinates registers do not hold, as fps_block_kernel lays them out.
+  const size_t smem = reg_coords(DIM, SLOTS, T)
+                          ? 0
+                          : (size_t)D * (DIM > 0 ? SLOTS * T : P) * sizeof(float);
+  if (P > SLOTS * T) return cudaErrorInvalidValue;
+  if (smem > 0) {
+    int budget = 0;
+    cudaError_t err = (cudaError_t)smem_budget(&budget);
+    if (err != cudaSuccess) return err;
+    if (smem > (size_t)budget) return cudaErrorInvalidValue;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<N, T, smem, stream>>>(points, lengths, Ks, starts, P, D, max_K, out);
   return cudaGetLastError();
+}
+
+// The block plans: at D=3, coordinates in registers up to 8192 points (256
+// threads with 8 or 16 slots, 512 with 16), in shared memory up to 16384
+// (1024 with 16); at any other D, 1024 threads with 8, 16 or 32 slots.
+template <int DIM>
+cudaError_t launch_block_plan(const float* points, const int64_t* lengths,
+                              const int64_t* Ks, const int64_t* starts, int N,
+                              int P, int D, int max_K, int threads, int slots,
+                              int64_t* out, cudaStream_t stream) {
+#define FPS_BLOCK(S, T)                                                       \
+  if (threads == T && slots == S)                                             \
+    return launch_block<DIM, S, T>(points, lengths, Ks, starts, N, P, D, max_K, \
+                                   out, stream);
+  if constexpr (DIM == 3) {
+    FPS_BLOCK(8, 256)
+    FPS_BLOCK(16, 256)
+    FPS_BLOCK(16, 512)
+    FPS_BLOCK(16, 1024)
+  } else {
+    FPS_BLOCK(8, 1024)
+    FPS_BLOCK(16, 1024)
+    FPS_BLOCK(32, 1024)
+  }
+#undef FPS_BLOCK
+  return cudaErrorInvalidValue;
 }
 
 struct GridArgs {
@@ -681,17 +736,23 @@ extern "C" int fps_card(int* sms, int* smem_bytes) {
 }
 
 // points (N, P, D) float32; lengths, Ks, starts (N,) int64; out (N, max_K)
-// int64, written in full. One block per cloud. Returns a cudaError_t.
+// int64, written in full. One block of `threads` threads per cloud, each
+// with `slots` slots (threads * slots >= P), under a block plan of
+// kernels/fps.py (launch_block_plan lists the instances). Returns a
+// cudaError_t.
 extern "C" int fps_block(const float* points, const int64_t* lengths,
                          const int64_t* Ks, const int64_t* starts, int N,
-                         int P, int D, int max_K, int64_t* out, void* stream) {
+                         int P, int D, int max_K, int threads, int slots,
+                         int64_t* out, void* stream) {
   if (N <= 0 || max_K <= 0) return cudaSuccess;
   if (D < 1 || P < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 3) {
-    return launch_block<3>(points, lengths, Ks, starts, N, P, D, max_K, out, s);
+    return launch_block_plan<3>(points, lengths, Ks, starts, N, P, D, max_K,
+                                threads, slots, out, s);
   }
-  return launch_block<0>(points, lengths, Ks, starts, N, P, D, max_K, out, s);
+  return launch_block_plan<0>(points, lengths, Ks, starts, N, P, D, max_K,
+                              threads, slots, out, s);
 }
 
 // As fps_block, with `blocks` blocks of `threads` threads on one cloud at

@@ -5,7 +5,9 @@ Three entry points, one per TPU kernel of
 ``pytorch3d_pointops_tpu/kernels/fps_pallas.py``:
 
 * ``fps_batched`` (``fps_pallas_batched``): one block per cloud, the cloud
-  held in shared memory; for clouds up to ``fps_limits(...)[0]`` points;
+  held on the SM (registers, and shared memory for the coordinates that
+  registers do not hold) under a ``BlockPlan`` that ``_block_plan`` picks
+  from P and D; for clouds up to ``fps_limits(...)[0]`` points;
 * ``fps_resident`` (``fps_pallas``): every SM on one cloud at a time, the
   cloud held on chip (registers and shared memory) across the SMs; up to
   ``fps_limits(...)[1]``;
@@ -47,8 +49,45 @@ SLOTS = (8, 16, 32)   # min-distances such a thread may hold in registers
 # registers too: slices of up to 8192 points.
 REG_PLANS = ((256, 8), (512, 16))
 MAX_GRID_BLOCKS = 256  # csrc/fps.cu kMaxGridBlocks
+# (threads, slots) of the block kernel's instances (csrc/fps.cu
+# launch_block_plan), by the most points each holds: at D=3 with
+# coordinates in registers up to 8192 points, in shared memory beyond; at
+# any other D in shared memory.
+BLOCK_PLANS = {3: ((256, 8), (256, 16), (512, 16), (1024, 16)),
+               0: ((1024, 8), (1024, 16), (1024, 32))}
 _RECORD = 4           # 64-bit words a grid block publishes a round (kRecord)
 _COPIES = 4           # copies of each record (kCopies)
+
+
+class BlockPlan(NamedTuple):
+    """One launch of ``csrc/fps.cu``'s block kernel (``_block_plan``)."""
+
+    threads: int     # a block, one block per cloud
+    slots: int       # points a thread holds: threads * slots >= P
+    smem_bytes: int  # dynamic shared memory: the coordinates registers do not hold
+
+
+def _block_plan(P: int, D: int) -> BlockPlan:
+    """The block kernel's launch for clouds of up to P points at dimension
+    D: the first of ``BLOCK_PLANS`` that holds P, so the fewest slots for
+    its thread count. At D=3 a plan of up to 8192 points keeps the
+    coordinates in registers (no shared memory); otherwise they sit in
+    shared memory as [d][q], rows of slots * threads points at D=3 and of P
+    at any other D."""
+    plans = BLOCK_PLANS[3 if D == 3 else 0]
+    fit = [(t, s) for t, s in plans if t * s >= P]
+    if not fit:
+        raise ValueError(f"the FPS block kernel takes clouds of up to "
+                         f"{plans[-1][0] * plans[-1][1]} points (got {P})")
+    threads, slots = fit[0]
+    in_regs = D == 3 and (D + 1) * slots * threads <= 32768  # csrc reg_coords
+    smem = 0 if in_regs else 4 * D * (slots * threads if D == 3 else P)
+    return BlockPlan(threads, slots, smem)
+
+
+def block_plan_name(plan: BlockPlan) -> str:
+    return (f"block t{plan.threads}/s{plan.slots} "
+            f"{'smem' if plan.smem_bytes else 'registers'}")
 
 
 class GridPlan(NamedTuple):
@@ -110,7 +149,7 @@ def _check_inputs(points, lengths, K, starts, max_K):
 def _lib():
     lib = _build.load("fps")
     lib.fps_card.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.fps_block.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    lib.fps_block.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.fps_grid.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
@@ -204,9 +243,12 @@ def plan_name(plan: GridPlan) -> str:
 
 
 def fps_limits(D: int, device) -> tuple[int, int]:
-    """(block, resident): the largest cloud ``fps_batched`` and
-    ``fps_resident`` take at dimension D on this CUDA device, set by its
-    shared memory per block and its number of SMs."""
+    """(block, resident): the largest cloud ``ops.fps`` sends to
+    ``fps_batched`` and the largest ``fps_resident`` takes at dimension D on
+    this CUDA device, set by its shared memory per block and its number of
+    SMs. The block cap is the (D + 1) * 4 bytes a point of a cloud held in
+    shared memory (about 14.5k points at D=3, 29k at D=1); every
+    ``_block_plan`` up to it holds the cloud on one SM."""
     device = torch.device(device)
     sms, smem = _card(device.index if device.index is not None
                       else torch.cuda.current_device())
@@ -221,8 +263,9 @@ def card_plan(points) -> GridPlan:
 
 def _launch(mode, points, lengths, K, starts, max_K, plan=None):
     """Launch ``csrc/fps.cu`` on CUDA tensors: float32 points, int64
-    lengths/K/starts, all contiguous and on one device. The grid modes take
-    ``plan``, or ``card_plan``'s."""
+    lengths/K/starts, all contiguous and on one device. The block mode
+    takes ``plan`` or ``_block_plan``'s, the grid modes ``plan`` or
+    ``card_plan``'s."""
     _check_inputs(points, lengths, K, starts, max_K)
     for t, dtype in ((points, torch.float32), (lengths, torch.int64),
                      (K, torch.int64), (starts, torch.int64)):
@@ -239,7 +282,9 @@ def _launch(mode, points, lengths, K, starts, max_K, plan=None):
     with torch.cuda.device(dev):
         stream = _build.stream_ptr(dev)
         if mode == "block":
-            err = lib.fps_block(*args, out.data_ptr(), stream)
+            plan = plan or _block_plan(P, D)
+            err = lib.fps_block(*args, plan.threads, plan.slots, out.data_ptr(),
+                                stream)
         else:
             plan = plan or card_plan(points)
             if mode == "resident" and plan.tier != "resident":
@@ -275,10 +320,12 @@ def _dispatch(wrapper, mode, points, lengths, K, starts, max_K, plan=None):
     raise ValueError(f"fps: no kernel for device {points.device}")
 
 
-def fps_batched(points, lengths, K, starts, max_K: int):
+def fps_batched(points, lengths, K, starts, max_K: int, *, _plan=None):
     """One block per cloud (clouds of up to ``fps_limits(D, dev)[0]``
-    points)."""
-    return _dispatch(fps_batched, "block", points, lengths, K, starts, max_K)
+    points). ``_plan`` forces a ``BlockPlan`` (``tune_fps.py``,
+    ``chip_smoke.py``)."""
+    return _dispatch(fps_batched, "block", points, lengths, K, starts, max_K,
+                     _plan)
 
 
 def fps_resident(points, lengths, K, starts, max_K: int, *, _plan=None):

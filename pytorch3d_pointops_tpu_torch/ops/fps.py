@@ -40,14 +40,14 @@ def _normalize_K(K, N: int, device) -> Tuple[torch.Tensor, int]:
 
 
 def _route(points: torch.Tensor):
-    """The FPS entry point for this batch: one block per cloud while a
-    cloud fits one block's shared memory, else the whole card with the cloud
-    on chip while it fits there, else the whole card streaming part of it
-    from device memory (the last two run the same grid kernel plan up to the
-    resident cap). On an H100 the block kernel was the faster at every
-    batch shape it takes but one cloud at its limit, where the two are
-    within 8 % of each other (1 x 14,000 points: 1.09-1.15 ms against
-    1.01-1.16 over two runs; ``tune_fps.py``, PERF.md)."""
+    """The FPS entry point for this batch: one block per cloud up to the
+    block cap of ``fps_limits`` ((D + 1) * 4 bytes a point of one block's
+    shared memory), else the whole card with the cloud on chip while it
+    fits there, else the whole card streaming part of it from device memory
+    (the last two run the same grid kernel plan up to the resident cap). On
+    an H100 the block kernel is the faster at every batch shape it takes,
+    one cloud at its limit included (1 x 14,000 points: 0.96-0.99 ms
+    against 1.07-1.16 over two runs; ``tune_fps.py``, PERF.md)."""
     _, P, D = points.shape
     if not points.is_cuda:
         return _fps.fps_batched  # every entry point runs the plain twin here

@@ -12,8 +12,11 @@ grid kernel's launch plan, then the card's name and power limit. Each timed
 output is also checked against ``fps_plain``'s at one shape per kernel.
 Where the plan keeps a slice's coordinates in registers, the same call is
 also timed under a plan of 1024 threads that keeps them in shared memory
-(``smem_coords_ms``). A copy of this file in an older tree's package times
-that tree's kernels (without plans).
+(``smem_coords_ms``). On the block route the line names the block kernel's
+plan (``block_plan``) and times every block plan that holds the cloud
+(``block_plans_ms``, ``fps_batched`` forced to each). A copy of this file
+in an older tree's package times that tree's kernels (without plans).
+``--block-only`` times only the shapes of the block route.
 Exits 1 without a CUDA device.
 """
 
@@ -58,6 +61,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also append the lines here")
+    ap.add_argument("--block-only", action="store_true",
+                    help="only the shapes fps_batched takes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tune_fps: no CUDA device", file=sys.stderr)
@@ -71,6 +76,8 @@ def main() -> int:
     checked = set()
     plans = hasattr(kf, "card_plan")
     for N, P, K in SHAPES:
+        if args.block_only and P > block_max:
+            continue
         pts = torch.rand((N, P, 3), generator=gen, device=dev)
         lengths = torch.full((N,), P, dtype=torch.int64, device=dev)
         Ks = torch.full((N,), K, dtype=torch.int64, device=dev)
@@ -89,6 +96,13 @@ def main() -> int:
                     raise RuntimeError(f"tune_fps: {name} disagrees with fps_plain")
                 checked.add(name)
             row[name + "_ms"] = _ms(lambda: fn(pts, lengths, Ks, starts, K))
+        if hasattr(kf, "_block_plan") and P <= block_max:
+            row["block_plan"] = kf.block_plan_name(kf._block_plan(P, 3))
+            row["block_plans_ms"] = {
+                f"t{t}/s{sl}": _ms(lambda: kf.fps_batched(
+                    pts, lengths, Ks, starts, K,
+                    _plan=kf._block_plan(P, 3)._replace(threads=t, slots=sl)))
+                for t, sl in kf.BLOCK_PLANS[3] if t * sl >= P}
         if plans and P > block_max:
             plan = kf.card_plan(pts)
             row["plan"] = kf.plan_name(plan)

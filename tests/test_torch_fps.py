@@ -315,3 +315,83 @@ def test_route_and_wrappers_launch_or_raise(monkeypatch):
     one = torch.ones((1,), dtype=torch.int64)
     with pytest.raises(ValueError):
         kf._launch("block", torch.zeros((1, 4, 3)), one, one, one, 2)
+
+
+# The block kernel's plans (kernels/fps.py _block_plan), up to the block cap
+# fps_limits(D)[0] = the shared memory a block may take over (D + 1) * 4.
+def _block_cap(D):
+    return _SMEM // ((D + 1) * 4)
+
+
+def _check_block_plan(P, D, plan):
+    """The plan holds P points, with the fewest slots of ``SLOTS`` that do
+    at its thread count; at D=3 coordinates in registers up to 8192 points
+    (no shared memory), else the coordinates in shared memory within the
+    budget: rows of slots * threads points at D=3, of P at any other D."""
+    assert (plan.threads, plan.slots) in kf.BLOCK_PLANS[3 if D == 3 else 0]
+    assert plan.threads * plan.slots >= P
+    assert plan.slots == min(s for s in kf.SLOTS if plan.threads * s >= P)
+    in_regs = D == 3 and plan.threads * plan.slots <= 8192
+    assert plan.smem_bytes == (0 if in_regs else 4 * D * (
+        plan.threads * plan.slots if D == 3 else P))
+    assert plan.smem_bytes <= _SMEM
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4, 16, 64])
+def test_block_plan_holds_every_cloud_up_to_the_cap(D):
+    for P in range(1, _block_cap(D) + 1):
+        _check_block_plan(P, D, kf._block_plan(P, D))
+
+
+@pytest.mark.parametrize("D", [1, 3, 16])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_block_plan_at_each_capacity(D, edge):
+    """At T * SLOTS - 1, T * SLOTS and T * SLOTS + 1 of each plan up to the
+    cap, the first plan that holds the cloud, and the cap itself."""
+    plans = kf.BLOCK_PLANS[3 if D == 3 else 0]
+    for i, (t, s) in enumerate(plans):
+        P = t * s + edge
+        if P > _block_cap(D):
+            continue
+        plan = kf._block_plan(P, D)
+        _check_block_plan(P, D, plan)
+        assert (plan.threads, plan.slots) == (plans[i + 1] if edge == 1 else (t, s))
+    _check_block_plan(_block_cap(D), D, kf._block_plan(_block_cap(D), D))
+
+
+def test_block_plan_config_2_and_past_the_largest():
+    """Config 2 (32 x 4,096 points, D=3) takes a register plan; past the
+    largest plan the wrapper raises."""
+    plan = kf._block_plan(4096, 3)
+    assert plan.smem_bytes == 0 and plan.threads * plan.slots == 4096
+    t, s = kf.BLOCK_PLANS[0][-1]
+    with pytest.raises(ValueError):
+        kf._block_plan(t * s + 1, 1)
+
+
+@pytest.mark.parametrize("D", [1, 3, 16])
+def test_route_keeps_the_block_cap(D, monkeypatch):
+    """``fps_limits`` (unchanged) sends the cap to ``fps_batched`` and the
+    cap + 1 to a grid entry point, on an H100's SM count and shared memory."""
+    monkeypatch.setattr(kf, "_card", lambda index: (_SMS, _SMEM))
+    cap = _block_cap(D)
+    assert kf.fps_limits(D, "cuda:0")[0] == cap
+    for P, want in ((cap, kf.fps_batched), (cap + 1, kf.fps_resident)):
+        card = types.SimpleNamespace(shape=(4, P, D), is_cuda=True, device="cuda:0")
+        assert ofps._route(card) is want, (D, P)
+
+
+@pytest.mark.parametrize("D", [3, 16])
+def test_fps_batched_plan_runs_the_plain_twin_on_cpu(D):
+    """On CPU tensors ``fps_batched`` runs the plain twin whatever plan it
+    is given; a meta tensor raises."""
+    pts = _points(17 + D, 3, 40, D=D, grid=True)
+    lengths, K, starts = np.array([40, 17, 0]), np.array([30, 30, 5]), np.array([3, 16, 0])
+    ref = kf.fps_plain(_t(pts), _t(lengths), _t(K), _t(starts), 30)
+    for plan in (None, kf._block_plan(40, D)):
+        out = kf.fps_batched(_t(pts), _t(lengths), _t(K), _t(starts), 30, _plan=plan)
+        assert torch.equal(out, ref)
+    meta = torch.zeros((1, 4, D), device="meta")
+    ml = torch.zeros((1,), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        kf.fps_batched(meta, ml, ml, ml, 2, _plan=kf._block_plan(4, D))

@@ -64,7 +64,24 @@ and the scatters run twice for bit-equality; each scatter's sort and
 segment sum are timed apart, launch by launch, as is a skewed scatter (one
 row of 100,000 entries), and config 2's backward scatters print their
 longest segment, and the FPS grid round's fixed cost is timed on a cloud of
-8 points a block, the block round's on 32 clouds of 512 points. The line
+8 points a block, the block round's on 32 clouds of 512 points.
+
+Phase 4 holds the KNN kernel's Morton sorting (``sort_queries``,
+``sort_candidates``, both) bit-equal to the unsorted kernel in both norms
+at the north star (K=16, 100), config 1, the 20k tie cloud, a ragged batch
+of 3 clouds (lengths2 0, 1 and P2 - 1, garbage past them, a box per cloud)
+and a cloud whose every point appears twice, and equal to the plain twin
+but at the north star; shows a block starting at a partial last tile;
+prints the kernel's counters (groups, fired votes, drains, insertions,
+pending appends) at the north star, unsorted and sorted, and the sorted
+times; drives config 4 (1M x 1M KNN, K=16, fwd+bwd through
+``knn_points``) as a main path with its own launch counts, auto-sorted
+against unsorted, the step against the plain path on the card (every
+query's indices and distances, both gradients), the backward's 16M-entry
+scatter against the plain twin (bit-equal on CPU copies), with the
+forward, backward and scatter times; and runs ``packed_to_padded``,
+``padded_to_packed`` (with gradients) and ``sample_pdf`` on the card
+against CPU tensors. The line
 before the last is one JSON object with a record per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line. Without CUDA it exits 1 at once.
@@ -190,6 +207,244 @@ def kernel_instances(log: str, kernel: str) -> dict:
     return {k: tuple(v) for k, v in out.items()}
 
 
+def phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,
+           note_err):
+    """Morton sorting held against the unsorted kernel (and the plain twin
+    at the smaller shapes), the kernel's counters unsorted and sorted at the
+    north star, config 4 (1M x 1M KNN) as a main path held against the
+    plain path, and packed/padded and sample_pdf on the card against the
+    same calls on CPU tensors."""
+    import pytorch3d_pointops_tpu_torch as ppt
+    from pytorch3d_pointops_tpu_torch.kernels import knn as kk
+    from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
+    from pytorch3d_pointops_tpu_torch.kernels import spatial_sort as ss
+    from pytorch3d_pointops_tpu_torch.ops.knn import _apply_pad_conventions
+
+    dev = ns_p1.device
+    erng = np.random.default_rng(args.seed + 2)
+    sorts = ((True, False), (False, True), (True, True))
+
+    def full(N, P):
+        return T(np.full(N, P), torch.int64)
+
+    # Ragged N = 3: lengths2 of 0, 1 and P2 - 1, garbage coordinates (up to
+    # 1e3) past them, and a box of its own per cloud (scale and offset).
+    rag1 = erng.normal(size=(3, 3000, 3)).astype(np.float32)
+    rag2 = erng.normal(size=(3, 5000, 3)).astype(np.float32)
+    for n in range(3):
+        rag1[n] = rag1[n] * (n + 1) + 10 * n
+        rag2[n] = rag2[n] * (n + 1) + 10 * n
+    rag_l2 = np.array([0, 1, 4999])
+    for n, length in enumerate(rag_l2):
+        rag2[n, length:] = erng.uniform(-1e3, 1e3, size=(5000 - length, 3))
+    # Every candidate twice (the copies far apart in index, near in Morton
+    # order), every fifth query a candidate.
+    base = erng.normal(size=(1, 10000, 3)).astype(np.float32)
+    dup1 = erng.normal(size=(1, 10000, 3)).astype(np.float32)
+    dup1[0, ::5] = base[0, erng.integers(0, 10000, size=2000)]
+    cases = [
+        ("north star", ns_p1, ns_p2, full(1, 100000), (16, 100), False),
+        ("config 1", pc1.points_padded(), pc2.points_padded(),
+         pc2.num_points_per_cloud(), (8,), True),
+        ("tie cloud 20k", tie1, tie2, full(1, 20000), (16,), True),
+        ("ragged 3 x 3000 x 5000", T(rag1), T(rag2), T(rag_l2, torch.int64),
+         (16, 100), True),
+        ("duplicated 10k x 2 x 10k", T(dup1), T(np.concatenate([base, base], 1)),
+         full(1, 20000), (16, 100), True),
+    ]
+    t0 = time.perf_counter()
+    for label, q, r, l2, Ks, vs_plain in cases:
+        N, P1 = q.shape[:2]
+        l1 = full(N, P1)
+        for K in Ks:
+            for norm in (1, 2):
+                base_out = kk.knn_topk_cuda(q, r, l2, K, norm, sort_queries=False,
+                                            sort_candidates=False)
+                if vs_plain:
+                    ref = _apply_pad_conventions(*kk.knn_topk_plain(q, r, l2, K, norm),
+                                                 l1, l2, K, P1)
+                for sq, sc in sorts:
+                    d, i = kk.knn_topk_cuda(q, r, l2, K, norm, sort_queries=sq,
+                                            sort_candidates=sc)
+                    what = f"sorted knn {label} K={K} norm={norm} queries={sq} cands={sc}"
+                    require(torch.equal(d, base_out[0]), f"{what}: dists")
+                    require(torch.equal(i, base_out[1]), f"{what}: idx")
+                    if vs_plain:
+                        dk, ik = _apply_pad_conventions(d, i, l1, l2, K, P1)
+                        require(torch.equal(dk, ref[0]) and torch.equal(ik, ref[1]),
+                                f"{what}: differs from knn_topk_plain")
+    print(f"phase 4: sorted knn (queries, candidates, both) bit-equal to unsorted, "
+          f"both norms, at {'; '.join(f'{c[0]} K={c[4]}' for c in cases)}; equal to "
+          f"knn_topk_plain but at the north star ({time.perf_counter() - t0:.1f} s)")
+    # A start tile that is the partial last tile: the tie cloud's 20,000
+    # sorted candidates end in a partial tile, and some block starts there.
+    plan = kk.card_plans(tie1, tie2, 16, 2, carried=True)[0]
+    order = kk.candidate_order(tie1, tie2, full(1, 20000))
+    starts = kk.scan_starts(tie1, order, plan.queries * plan.threads, plan.tile,
+                            ss.morton_order(tie1))
+    last = -(-20000 // plan.tile) - 1
+    require(20000 % plan.tile and int((starts == last).sum()) > 0,
+            f"tie cloud: no block starts at the partial tile {last} ({kk.plan_name(plan)})")
+    print(f"  tie cloud, both sorted, {kk.plan_name(plan)}: {int((starts == last).sum())} "
+          f"of {starts.numel()} blocks start at the partial last tile ({20000 % plan.tile} "
+          f"candidates); start tiles span {int(starts.min())}-{int(starts.max())}")
+    # Other dimensions: the queries sort at any D; candidate sorting has
+    # kernel instances at D = 3 only and raises elsewhere.
+    for D in (1, 2, 5):
+        q, r = T(grid_points(erng, (2, 700, D))), T(grid_points(erng, (2, 900, D)))
+        l2 = T(np.array([900, 444]), torch.int64)
+        out = kk.knn_topk_cuda(q, r, l2, 8, 2, sort_queries=False, sort_candidates=False)
+        srt = kk.knn_topk_cuda(q, r, l2, 8, 2, sort_queries=True, sort_candidates=False)
+        require(torch.equal(out[0], srt[0]) and torch.equal(out[1], srt[1]),
+                f"sorted queries D={D}: differ from unsorted")
+        try:
+            kk.knn_topk_cuda(q, r, l2, 8, 2, sort_candidates=True)
+            require(False, f"sort_candidates=True at D={D} did not raise")
+        except ValueError:
+            pass
+    print("  D in {1, 2, 5}: sorted queries bit-equal to unsorted; sort_candidates=True "
+          "raises")
+
+    # The counters of one launch at the north star, K=16: unsorted and sorted.
+    # Insertions depend on each query's scan order only: equal with the
+    # queries sorted; with the candidates sorted the order changes, but no
+    # query inserts fewer than K.
+    ns_len = full(1, 100000)
+    counts = {}
+    for name, (sq, sc) in (("unsorted", (False, False)), ("queries", (True, False)),
+                           ("candidates", (False, True)), ("both", (True, True))):
+        c = kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, 16, 2, sort_queries=sq,
+                             sort_candidates=sc, instrument=True)[2]
+        counts[name] = dict(zip(kk.COUNTERS, c.sum(dim=(0, 1)).tolist()))
+        counts[name]["fired_share"] = counts[name]["fired"] / counts[name]["groups"]
+    print("  north-star K=16 counters (groups, fired votes, drains with work, "
+          f"insertions, pending appends): {json.dumps(counts)}")
+    require(counts["unsorted"]["admissions"] == counts["queries"]["admissions"],
+            "counters: insertions differ with the queries sorted")
+    require(all(c["admissions"] >= 16 * 100000 for c in counts.values()),
+            "counters: fewer insertions than K a query")
+    ms = {name: cuda_ms(lambda: kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, 16, 2,
+                                                 sort_queries=sq, sort_candidates=sc),
+                        reps=5)
+          for name, (sq, sc) in (("unsorted", (False, False)), ("queries", (True, False)),
+                                 ("both", (True, True)), ("auto", (None, None)))}
+    print(f"  north-star knn_topk_cuda K=16 ms, sorts included: {json.dumps(ms)}")
+
+    # Config 4: one cloud of 1M queries against 1M points, K=16, forward and
+    # backward through knn_points, as a main path: every launch counter set
+    # to 0 just before and read just after.
+    c4_p1 = torch.randn((1, 1_000_000, 3), generator=torch.Generator(device=dev)
+                        .manual_seed(args.seed + 40), device=dev)
+    c4_p2 = torch.randn((1, 1_000_000, 3), generator=torch.Generator(device=dev)
+                        .manual_seed(args.seed + 41), device=dev)
+    c4_counters = (kk.knn_topk_cuda, ks.scatter_add_rows)
+    for c in c4_counters:
+        c.launches = 0
+    # -- the config 4 main path: nothing but what a user would call --
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out4, g1, g2 = knn_step(c4_p1, c4_p2, None, None, 16)
+    torch.cuda.synchronize()
+    c4_ms = (time.perf_counter() - t0) * 1e3
+    launches4 = {c.__name__: c.launches for c in c4_counters}
+    # -- end of the config 4 main path --
+    print(f"  config 4 launches {json.dumps(launches4)}; fwd+bwd {c4_ms:.1f} ms "
+          "(first call)")
+    require(all(v > 0 for v in launches4.values()), "a kernel of config 4 never ran")
+    require(bool(torch.isfinite(out4.dists).all()) and bool(torch.isfinite(g1).all())
+            and bool(torch.isfinite(g2).all()) and g2.abs().max() > 0,
+            "config 4: dists or gradients not finite, or no gradient into p2")
+    c4_len = full(1, 1_000_000)
+    auto = kk.knn_topk_cuda(c4_p1, c4_p2, c4_len, 16, 2)
+    unsorted = kk.knn_topk_cuda(c4_p1, c4_p2, c4_len, 16, 2, sort_queries=False,
+                                sort_candidates=False)
+    require(torch.equal(auto[1], unsorted[1]) and torch.equal(auto[0], unsorted[0]),
+            "config 4: auto-sorted knn differs from unsorted")
+    # The main path's step against the same step through the plain twins on
+    # the card: every query's indices and distances, both gradients.
+    t0 = time.perf_counter()
+    with plain_path():
+        out4p, g1p, g2p = knn_step(c4_p1, c4_p2, None, None, 16)
+    torch.cuda.synchronize()
+    plain4_s = time.perf_counter() - t0
+    require(torch.equal(out4.idx, out4p.idx), "config 4: idx differ from the plain path")
+    derr4 = (out4.dists - out4p.dists).abs().max().item()
+    gerr4 = [(a - b).abs().max().item() for a, b in ((g1, g1p), (g2, g2p))]
+    note_err("knn", derr4)
+    require(derr4 <= TOL, f"config 4: dists err {derr4} against the plain path")
+    require(torch.allclose(g1, g1p, rtol=TOL, atol=TOL)
+            and torch.allclose(g2, g2p, rtol=TOL, atol=TOL),
+            f"config 4: gradients differ from the plain path (max abs err {gerr4})")
+    # The backward's scatter at this shape, 16M entries into 1M rows: its
+    # radix sort equal to the stable argsort, bit-equal run to run and to
+    # the plain twin on CPU copies, within TOL of the plain twin on the card.
+    idx4 = out4.idx.reshape(1, -1)
+    contrib4 = torch.randn((1, idx4.shape[1], 3), device=dev)
+    plan4, ref_plan4 = ks.sort_plan(idx4, 1_000_000), ks.segment_plan(idx4, 1_000_000)
+    require(torch.equal(plan4[0], ref_plan4[0]) and torch.equal(plan4[1], ref_plan4[1]),
+            "config 4: sort_plan differs from segment_plan")
+    s4 = ks.scatter_add_rows(idx4, contrib4, 1_000_000)
+    require(torch.equal(s4, ks.scatter_add_rows(idx4, contrib4, 1_000_000)),
+            "config 4 scatter: not bit-equal run to run")
+    require(torch.equal(s4.cpu(), ks.scatter_add_plain(idx4.cpu(), contrib4.cpu(),
+                                                       1_000_000)),
+            "config 4 scatter: not bit-equal to the CPU twin")
+    serr4 = (s4 - ks.scatter_add_plain(idx4, contrib4, 1_000_000)).abs().max().item()
+    note_err("rows", serr4)
+    require(serr4 <= TOL, f"config 4 scatter: err {serr4}")
+    fwd = {name: cuda_ms(lambda: kk.knn_topk_cuda(c4_p1, c4_p2, c4_len, 16, 2,
+                                                  sort_queries=sq, sort_candidates=sc),
+                         reps=3)
+           for name, (sq, sc) in (("unsorted", (False, False)), ("auto", (None, None)))}
+    with torch.no_grad():
+        fwd["knn_points"] = wall_ms(lambda: ppt.knn_points(c4_p1, c4_p2, K=16), reps=3)
+    step = wall_ms(lambda: knn_step(c4_p1, c4_p2, None, None, 16), reps=3)
+    scatter4 = cuda_ms(lambda: ks.scatter_add_rows(idx4, contrib4, 1_000_000), reps=3)
+    print(f"  config 4 1M x 1M K=16: auto-sorted idx and dists equal to unsorted; the "
+          f"step equal to the plain path's ({plain4_s:.1f} s): idx equal, dists max abs "
+          f"err {derr4:.3g}, grads {gerr4[0]:.3g} / {gerr4[1]:.3g}; the scatter of "
+          f"{idx4.shape[1]:,} entries bit-equal to the CPU twin, err {serr4:.3g} on the "
+          f"card; forward ms {json.dumps(fwd)}; fwd+bwd {step:.1f} ms (backward "
+          f"{step - fwd['knn_points']:.1f}); the scatter {scatter4:.2f} ms")
+
+    # packed/padded and sample_pdf on the card: equal to the same calls on CPU
+    # tensors (the conversions and their gradients exactly; samples within
+    # TOL, as cumulative sums add in another order on the card).
+    sizes = (700, 0, 1300, 5)
+    first = np.concatenate([[0], np.cumsum(sizes[:-1])])
+    packed = erng.normal(size=(sum(sizes), 4, 3)).astype(np.float32)
+    w = erng.normal(size=(len(sizes), max(sizes), 4, 3)).astype(np.float32)
+    res = []
+    for device in (dev, "cpu"):
+        x = torch.tensor(packed, device=device, requires_grad=True)
+        padded = ppt.packed_to_padded(x, torch.tensor(first, device=device), max(sizes))
+        y = padded.detach().clone().requires_grad_(True)
+        back = ppt.padded_to_packed(y, first.tolist(), sum(sizes))
+        (padded * torch.tensor(w, device=device)).sum().backward()
+        (back * back).sum().backward()
+        res.append([t.detach().cpu() for t in (padded, x.grad, back, y.grad)])
+    require(all(torch.equal(a, b) for a, b in zip(*res)),
+            "packed_to_padded / padded_to_packed on the card differ from the CPU")
+    bins = np.sort(erng.uniform(size=(64, 33)), axis=-1).astype(np.float32)
+    wts = erng.uniform(size=(64, 32)).astype(np.float32)
+    wts[::7] = 0.0
+    on_card = ppt.sample_pdf(T(bins), T(wts), 128, det=True)
+    on_cpu = ppt.sample_pdf(torch.tensor(bins), torch.tensor(wts), 128, det=True)
+    err = (on_card.cpu() - on_cpu).abs().max().item()
+    require(on_card.is_cuda and err <= TOL, f"sample_pdf on the card: err {err}")
+    py_err = (ppt.sample_pdf_python(T(bins), T(wts), 128, det=True).cpu()
+              - ppt.sample_pdf_python(torch.tensor(bins), torch.tensor(wts), 128,
+                                      det=True)).abs().max().item()
+    require(py_err <= TOL, f"sample_pdf_python on the card: err {py_err}")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    rand = ppt.sample_pdf(T(bins), T(wts), 128, det=False, generator=gen)
+    require(bool(((rand >= T(bins[:, :1]) - 1e-6) & (rand <= T(bins[:, -1:]) + 1e-6)).all()),
+            "sample_pdf det=False on the card: a sample outside its bins")
+    print(f"  packed_to_padded, padded_to_packed and their gradients equal on card and "
+          f"CPU; sample_pdf / sample_pdf_python det=True max abs err {err:.3g} / "
+          f"{py_err:.3g}; det=False inside the support")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -235,16 +490,21 @@ def main() -> int:
     if os.path.exists(knn_log):
         with open(knn_log) as f:
             instances = kernel_instances(f.read(), "knn_topk_kernel")
+        # knn_topk_kernel<KB, DIM, NORM, Q, CHAINED, CARRIED, COUNT>.
         by_dim = {}
         for key, (regs, spill) in sorted(instances.items()):
+            bucket, _, _, q, chained, carried, count = key
             by_dim.setdefault(key[1:3], []).append(
-                f"KB{key[0]}{'c' if key[4] else ''}/Q{key[3]}:{regs}r"
-                f"{f'+{spill}s' if spill else ''}")
+                f"KB{bucket}{'c' if chained else ''}{'s' if carried else ''}"
+                f"{'n' if count else ''}/Q{q}:{regs}r{f'+{spill}B' if spill else ''}")
+        print("  knn_topk_kernel instances: KB<bucket>[c chained][s candidates "
+              "sorted][n counting]/Q<queries a thread>:<registers>r[+<spill bytes>B]")
         for (kdim, knorm), items in sorted(by_dim.items()):
-            print(f"  knn_topk_kernel DIM={kdim} norm={knorm} (registers, spill "
-                  f"bytes): {' '.join(items)}")
+            print(f"  knn_topk_kernel DIM={kdim} norm={knorm}: {' '.join(items)}")
         spilled = [k for k, (_, s) in instances.items() if k[1] == 3 and s]
         require(instances and not spilled, f"knn D=3 instances spill: {spilled}")
+        require(any(k[5] for k in instances) and any(k[6] for k in instances),
+                "knn: no candidate-sorted or no counting instance was built")
     fps_log = os.path.join(_build.BUILD_DIR, "fps.ptxas.log")
     if os.path.exists(fps_log):
         with open(fps_log) as f:
@@ -860,6 +1120,10 @@ def main() -> int:
                            T(np.array([0]), torch.int64), K)
         require(torch.equal(big_idx[label], ref), f"FPS {label}: idx differ from plain")
     print("  large-cloud FPS vs plain: idx equal (1M K=1024, 4M K=512)")
+
+    # ---------------- phase 4: Morton sorting, config 4, the last ops ----------------
+    phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,
+           note_err)
 
     # ---------------- kernel times at the main path's shapes ----------------
     records = []

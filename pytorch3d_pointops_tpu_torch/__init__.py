@@ -4,9 +4,10 @@
 Plain functions on torch tensors under the JAX package's names. An op runs
 where its input tensors are: on CUDA tensors through hand-written Hopper
 kernels (``csrc/``, built with ``nvcc`` at first use), on CPU tensors through
-their plain PyTorch twins. This package exports what is ported so far: KNN,
-the chamfer loss, ball query, farthest point sampling, the gather and
-covariance helpers, and the ragged ``Pointclouds`` container.
+their plain PyTorch twins. It exports every public name of the JAX package:
+KNN, the chamfer loss, ball query, farthest point sampling, packed/padded
+conversions, PDF sampling, the gather and covariance helpers, and the
+ragged ``Pointclouds`` container.
 """
 
 __version__ = "0.1.0"
@@ -20,8 +21,12 @@ from .ops import (
     knn_gather,
     knn_points,
     masked_gather,
+    packed_to_padded,
+    padded_to_packed,
     sample_farthest_points,
     sample_farthest_points_naive,
+    sample_pdf,
+    sample_pdf_python,
     wmean,
 )
 from .structures import (
@@ -45,8 +50,12 @@ __all__ = [
     "knn_gather",
     "knn_points",
     "masked_gather",
+    "packed_to_padded",
+    "padded_to_packed",
     "sample_farthest_points",
     "sample_farthest_points_naive",
+    "sample_pdf",
+    "sample_pdf_python",
     "wmean",
     "Pointclouds",
     "all_close",

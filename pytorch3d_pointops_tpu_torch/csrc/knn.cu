@@ -41,6 +41,32 @@
 // candidates lexicographically above round r-1's last entry (lb_d, lb_i), so
 // the rounds concatenate to the global order.
 //
+// Query sorting (ports knn_pallas.py's sort_queries): the wrapper may pass
+// rows, the queries in Morton order; the kernel's query q of cloud n is then
+// row rows[n * P1 + q] of p1 (read where it lies, no copy), while lb_d/lb_i
+// and the outputs stay in the kernel's order, which the wrapper undoes. A
+// warp's and a block's queries are neighbours, so their votes fire
+// together.
+//
+// Candidate sorting (CARRIED; ports knn_pallas.py's sort_candidates): the
+// wrapper hands p2 in Morton order with each row's original index
+// (cand_ids) and a start tile per block (starts), the tile whose Morton
+// codes hold the block's median query. A block scans tile (start + t) mod
+// tiles at step t, so its kth values are nearly final after the first tile
+// and later votes rarely fire. Tiles then arrive out of index order, so the
+// state is kept lexicographic on (value, original index) explicitly: the
+// vote and the pending lists take d <= kth (ties may still win on index),
+// and admit compares and places by (value, index). The original indices
+// are staged with the tile, in each candidate's fourth (padding) float, so
+// a drain reads one with the candidate. Outputs are original indices. Rows
+// past lengths2 were sorted last by the wrapper, so the
+// truncation by position stays right.
+//
+// Counting (COUNT; ports knn_pallas.py's instrument): per block, the groups
+// its warps scanned, the votes that fired, the drains that had work, the
+// insertions into the top-K, and the candidates that passed the screen into
+// a pending list; compiled out of the production instances.
+//
 // Arithmetic: each axis term is rounded on its own and summed in order
 // d = 0..D-1 (__fsub_rn/__fmul_rn/__fadd_rn, never contracted to FMA), so
 // the distances are bit-equal to the plain PyTorch version.
@@ -77,14 +103,21 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Issue the copies of cnt candidates (cnt * D floats at src) into dst at
-// stride S; each thread commits one group of copies.
-template <int DIM>
+// stride S; CARRIED (D = 3) also copies each one's original index (cnt ints
+// at ids) into its fourth, padding float. Each thread commits one group of
+// copies.
+template <int DIM, bool CARRIED>
 __device__ __forceinline__ void stage_tile(float* dst, const float* src,
-                                           int cnt, int D, int S) {
+                                           const int* ids, int cnt, int D, int S) {
   const int total = cnt * D;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
     const int c = DIM == 3 ? e / 3 : e / D;
     cp_async_f32(dst + c * S + (e - c * (DIM == 3 ? 3 : D)), src + e);
+  }
+  if constexpr (CARRIED) {
+    for (int c = threadIdx.x; c < cnt; c += blockDim.x) {
+      cp_async_f32(dst + c * S + 3, reinterpret_cast<const float*>(ids + c));
+    }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -134,30 +167,47 @@ __device__ __forceinline__ float distance(const float* q, const Cand<DIM>& c,
   }
 }
 
-// Insert (dist, j) if it is below the kth value (and, for a chained round,
-// lexicographically above the previous round's last entry): behind every
-// entry <= dist. Slot s takes slot s-1's entry when that entry is larger,
-// else the candidate when slot s held a larger value; walking s downward
-// reads slots not yet written.
-template <int KB, bool CHAINED>
-__device__ __forceinline__ void admit(float (&bd)[KB], int (&bi)[KB],
+// Whether entry (v, i) sorts after candidate (d, j): by value, and with
+// CARRIED (candidates out of index order) by index among equal values;
+// without it every entry already held has a lower index than j.
+template <bool CARRIED>
+__device__ __forceinline__ bool after(float v, int i, float d, int j) {
+  return v > d || (CARRIED && v == d && i > j);
+}
+
+// Insert (dist, j) if it sorts before the kth entry (and, for a chained
+// round, lexicographically after the previous round's last entry): behind
+// every entry that does not sort after it. Slot s takes slot s-1's entry
+// when that entry sorts after the candidate, else the candidate when slot s
+// held one that does; walking s downward reads slots not yet written.
+// Returns whether it was inserted.
+template <int KB, bool CHAINED, bool CARRIED>
+__device__ __forceinline__ bool admit(float (&bd)[KB], int (&bi)[KB],
                                       float dist, int j, float lbd, int lbi) {
-  if (!(dist < bd[KB - 1])) return;
-  if (CHAINED && !(dist > lbd || (dist == lbd && j > lbi))) return;
+  if (!after<CARRIED>(bd[KB - 1], bi[KB - 1], dist, j)) return false;
+  if (CHAINED && !(dist > lbd || (dist == lbd && j > lbi))) return false;
 #pragma unroll
   for (int s = KB - 1; s > 0; --s) {
-    if (bd[s - 1] > dist) {
+    if (after<CARRIED>(bd[s - 1], bi[s - 1], dist, j)) {
       bd[s] = bd[s - 1];
       bi[s] = bi[s - 1];
-    } else if (bd[s] > dist) {
+    } else if (after<CARRIED>(bd[s], bi[s], dist, j)) {
       bd[s] = dist;
       bi[s] = j;
     }
   }
-  if (bd[0] > dist) {
+  if (after<CARRIED>(bd[0], bi[0], dist, j)) {
     bd[0] = dist;
     bi[0] = j;
   }
+  return true;
+}
+
+// The vote's and the pending lists' test of a distance against the kth:
+// strict without CARRIED; with it, ties too (admit decides them by index).
+template <bool CARRIED>
+__device__ __forceinline__ bool below_kth(float d, float kth) {
+  return CARRIED ? d <= kth : d < kth;
 }
 
 // One thread's queries and their top-K state, and the scan of one staged
@@ -174,8 +224,9 @@ __device__ __forceinline__ void admit(float (&bd)[KB], int (&bi)[KB],
 // lane had a candidate; checking each candidate against the kth as it was
 // when the list was filled admits a superset of what an insertion in
 // ascending j admits, so the drained state is the same.
-template <int KB, int DIM, int NORM, int Q, bool CHAINED>
+template <int KB, int DIM, int NORM, int Q, bool CHAINED, bool CARRIED, bool COUNT>
 struct Scan {
+  static_assert(!CARRIED || DIM == 3, "original indices ride in D=3 padding");
   static constexpr int U = kGroupSlots / Q;  // candidates a group
   static constexpr int C = 2 * U;            // pending list capacity
   static constexpr int QD = DIM > 0 ? DIM : 1;
@@ -189,6 +240,9 @@ struct Scan {
   int npend[Q];
   int* pend;  // (Q, C, blockDim.x) tile positions
   int D, S;
+  // COUNT: groups scanned, votes fired, drains with work (all warp-uniform),
+  // this thread's insertions and pending appends.
+  unsigned groups, fired, drains, admitted, screened;
 
   __device__ __forceinline__ int* slot(int qq, int e) const {
     return pend + (qq * C + e) * blockDim.x + threadIdx.x;
@@ -214,6 +268,7 @@ struct Scan {
   // Returns whether the vote fired (warp-uniform).
   template <bool TAIL>
   __device__ __forceinline__ bool group(const Cand<DIM> (&c)[U], int g, int cnt) {
+    if constexpr (COUNT) ++groups;
     float dg[Q][U];
     bool hit[Q];
 #pragma unroll
@@ -224,37 +279,50 @@ struct Scan {
       for (int qq = 0; qq < Q; ++qq) {
         const float d = dist(qq, c[u]);
         dg[qq][u] = d;
-        hit[qq] |= d < bd[qq][KB - 1] && (!CHAINED || d >= lbd[qq]);
+        hit[qq] |= below_kth<CARRIED>(d, bd[qq][KB - 1]) &&
+                   (!CHAINED || d >= lbd[qq]);
       }
     }
     bool any = false;
 #pragma unroll
     for (int qq = 0; qq < Q; ++qq) any |= hit[qq];
     if (!__any_sync(0xffffffffu, any)) return false;
+    if constexpr (COUNT) ++fired;
 #pragma unroll
     for (int qq = 0; qq < Q; ++qq) {
       if (!hit[qq]) continue;
       const float kth = bd[qq][KB - 1];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        if ((!TAIL || g + u < cnt) && dg[qq][u] < kth &&
+        if ((!TAIL || g + u < cnt) && below_kth<CARRIED>(dg[qq][u], kth) &&
             (!CHAINED || dg[qq][u] >= lbd[qq])) {
           *slot(qq, npend[qq]++) = g + u;
+          if constexpr (COUNT) ++screened;
         }
       }
     }
     return true;
   }
 
-  // Insert every pending candidate of tile `cur` (whose first index is t0)
-  // in list order, and empty the lists.
+  // Insert every pending candidate of tile `cur` (whose first position is
+  // t0) in list order, and empty the lists.
   __device__ __forceinline__ void drain(const float* cur, int t0) {
+    if constexpr (COUNT) {
+      bool work = false;
+#pragma unroll
+      for (int qq = 0; qq < Q; ++qq) work |= npend[qq] > 0;
+      drains += __any_sync(0xffffffffu, work) ? 1 : 0;
+    }
 #pragma unroll
     for (int qq = 0; qq < Q; ++qq) {
       for (int e = 0; e < npend[qq]; ++e) {
         const int c = *slot(qq, e);
-        admit<KB, CHAINED>(bd[qq], bi[qq], dist(qq, load_cand<DIM>(cur + c * S)),
-                           t0 + c, lbd[qq], lbi[qq]);
+        const Cand<DIM> cand = load_cand<DIM>(cur + c * S);
+        int j = t0 + c;
+        if constexpr (CARRIED) j = __float_as_int(cand.v[3]);
+        const bool in = admit<KB, CHAINED, CARRIED>(bd[qq], bi[qq], dist(qq, cand),
+                                                    j, lbd[qq], lbi[qq]);
+        if constexpr (COUNT) admitted += in;
       }
       npend[qq] = 0;
     }
@@ -309,30 +377,35 @@ struct Scan {
 
 // Thread t of block b owns queries b * Q * blockDim.x + qq * blockDim.x + t.
 // Shared memory: two tiles of (tile, S) floats, then the pending lists.
-template <int KB, int DIM, int NORM, int Q, bool CHAINED>
+template <int KB, int DIM, int NORM, int Q, bool CHAINED, bool CARRIED, bool COUNT>
 __global__ void __launch_bounds__(kMaxThreads) knn_topk_kernel(
     const float* __restrict__ p1, const float* __restrict__ p2,
     const int64_t* __restrict__ lengths2, const float* __restrict__ lb_d,
-    const int64_t* __restrict__ lb_i, int P1, int P2, int D, int K, int tile,
-    float* __restrict__ out_d, int64_t* __restrict__ out_i) {
-  using State = Scan<KB, DIM, NORM, Q, CHAINED>;
+    const int64_t* __restrict__ lb_i, const int* __restrict__ rows,
+    const int* __restrict__ cand_ids, const int* __restrict__ starts,
+    unsigned long long* __restrict__ counts, int P1, int P2, int D, int K,
+    int tile, float* __restrict__ out_d, int64_t* __restrict__ out_i) {
+  using State = Scan<KB, DIM, NORM, Q, CHAINED, CARRIED, COUNT>;
   extern __shared__ float4 smem_f4[];
   float* const stage = reinterpret_cast<float*>(smem_f4);
   const int S = stride_of(DIM, D);
   const int n = blockIdx.y;
   const int first = blockIdx.x * Q * blockDim.x + threadIdx.x;
 
-  // Rows past P1 compute on row 0 but never admit: their kth is -inf.
+  // Rows past P1 compute on the cloud's first query but never admit: their
+  // kth is -inf.
   State st;
   st.pend = reinterpret_cast<int*>(stage + 2 * tile * S);
   st.D = D;
   st.S = S;
+  st.groups = st.fired = st.drains = st.admitted = st.screened = 0;
 #pragma unroll
   for (int qq = 0; qq < Q; ++qq) {
     const int q = first + qq * blockDim.x;
     const bool active = q < P1;
     const int64_t row = (int64_t)n * P1 + (active ? q : 0);
-    st.qp[qq] = p1 + row * D;
+    const int64_t src = rows != nullptr ? (int64_t)n * P1 + rows[row] : row;
+    st.qp[qq] = p1 + src * D;
 #pragma unroll
     for (int d = 0; d < State::QD; ++d) {
       st.qv[qq][d] = (DIM == 3 || (DIM > 0 && d < D)) ? st.qp[qq][d] : 0.f;
@@ -354,19 +427,46 @@ __global__ void __launch_bounds__(kMaxThreads) knn_topk_kernel(
   int64_t len64 = lengths2[n];
   const int len2 = (int)(len64 < 0 ? 0 : (len64 > P2 ? P2 : len64));
   const float* p2n = p2 + (int64_t)n * P2 * D;
+  const int* idn = CARRIED ? cand_ids + (int64_t)n * P2 : nullptr;
   const int tiles = (len2 + tile - 1) / tile;
-  if (tiles > 0) stage_tile<DIM>(stage, p2n, min(tile, len2), D, S);
+  // Step t scans tile (start + t) mod tiles: start is 0 but with CARRIED.
+  int start = CARRIED ? starts[(int64_t)n * gridDim.x + blockIdx.x] : 0;
+  if (start < 0 || start >= tiles) start = 0;
+  const auto first_of = [&](int t) {
+    const int r = start + t;
+    return (r >= tiles ? r - tiles : r) * tile;
+  };
+  if (tiles > 0) {
+    const int s0 = first_of(0);
+    stage_tile<DIM, CARRIED>(stage, p2n + (int64_t)s0 * D,
+                             CARRIED ? idn + s0 : nullptr, min(tile, len2 - s0),
+                             D, S);
+  }
 
   for (int t = 0; t < tiles; ++t) {
     cp_async_wait_all();
-    __syncthreads();  // tile t is staged; no thread still reads tile t-1
-    const int t0 = t * tile;
+    __syncthreads();  // step t's tile is staged; no thread still reads t-1's
+    const int t0 = first_of(t);
     if (t + 1 < tiles) {
-      const int t1 = t0 + tile;
-      stage_tile<DIM>(stage + ((t + 1) & 1) * tile * S, p2n + (int64_t)t1 * D,
-                      min(tile, len2 - t1), D, S);
+      const int t1 = first_of(t + 1);
+      stage_tile<DIM, CARRIED>(stage + ((t + 1) & 1) * tile * S,
+                               p2n + (int64_t)t1 * D, CARRIED ? idn + t1 : nullptr,
+                               min(tile, len2 - t1), D, S);
     }
     st.scan_tile(stage + (t & 1) * tile * S, t0, min(tile, len2 - t0));
+  }
+
+  if constexpr (COUNT) {
+    unsigned long long* c = counts + ((int64_t)n * gridDim.x + blockIdx.x) * 5;
+    const unsigned admitted = __reduce_add_sync(0xffffffffu, st.admitted);
+    const unsigned screened = __reduce_add_sync(0xffffffffu, st.screened);
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(c, (unsigned long long)st.groups);
+      atomicAdd(c + 1, (unsigned long long)st.fired);
+      atomicAdd(c + 2, (unsigned long long)st.drains);
+      atomicAdd(c + 3, (unsigned long long)admitted);
+      atomicAdd(c + 4, (unsigned long long)screened);
+    }
   }
 
 #pragma unroll
@@ -392,18 +492,23 @@ struct Args {
   const int64_t* lengths2;
   const float* lb_d;
   const int64_t* lb_i;
+  const int* rows;
+  const int* cand_ids;
+  const int* starts;
+  unsigned long long* counts;
   int N, P1, P2, D, K;
   float* out_d;
   int64_t* out_i;
+  bool carried, count;  // the variant: carried (cand_ids), counting (counts)
 };
 
 // Launch one instance, or (resident != null) report how many of its blocks
 // fit on one SM at this block size and tile instead.
-template <int KB, int DIM, int NORM, int Q, bool CHAINED>
+template <int KB, int DIM, int NORM, int Q, bool CHAINED, bool CARRIED, bool COUNT>
 cudaError_t run(const Args& a, int threads, int tile, cudaStream_t stream,
                 int* resident) {
-  auto kernel = knn_topk_kernel<KB, DIM, NORM, Q, CHAINED>;
-  using State = Scan<KB, DIM, NORM, Q, CHAINED>;
+  auto kernel = knn_topk_kernel<KB, DIM, NORM, Q, CHAINED, CARRIED, COUNT>;
+  using State = Scan<KB, DIM, NORM, Q, CHAINED, CARRIED, COUNT>;
   const size_t smem = (2 * (size_t)tile * stride_of(DIM, a.D) +
                        (size_t)Q * State::C * threads) * sizeof(float);
   if (smem > kDefaultSmem) {
@@ -416,10 +521,41 @@ cudaError_t run(const Args& a, int threads, int tile, cudaStream_t stream,
                                                          threads, smem);
   }
   const dim3 grid((a.P1 + Q * threads - 1) / (Q * threads), a.N);
-  kernel<<<grid, threads, smem, stream>>>(a.p1, a.p2, a.lengths2, a.lb_d,
-                                          a.lb_i, a.P1, a.P2, a.D, a.K, tile,
-                                          a.out_d, a.out_i);
+  kernel<<<grid, threads, smem, stream>>>(
+      a.p1, a.p2, a.lengths2, a.lb_d, a.lb_i, a.rows, a.cand_ids, a.starts,
+      a.counts, a.P1, a.P2, a.D, a.K, tile, a.out_d, a.out_i);
   return cudaGetLastError();
+}
+
+// The carried (candidate-sorted) and counting variants exist only where
+// chip_smoke.py and tune_knn.py drive them (kernels/knn.py
+// _carried_instance, _counted_instance): the H100 measured candidate
+// sorting slower at every shape (PERF.md), so no auto gate takes it. Both
+// at D = 3 for K buckets of 8 and more, at norm 1 all but the 32-key
+// bucket (the single-round 64-key instance sizes the chained rounds'
+// plan); counting at norm 2, in single rounds.
+template <int KB, int DIM, int NORM, int Q, bool CHAINED>
+cudaError_t pick_mode(const Args& a, int threads, int tile, cudaStream_t stream,
+                      int* resident) {
+  constexpr bool kCarried = DIM == 3 && KB >= 8 && (NORM == 2 || KB != 32);
+  constexpr bool kCount = DIM == 3 && NORM == 2 && KB >= 8 && !CHAINED;
+  if (!a.count) {
+    if (!a.carried) {
+      return run<KB, DIM, NORM, Q, CHAINED, false, false>(a, threads, tile, stream,
+                                                          resident);
+    }
+    if constexpr (kCarried) {
+      return run<KB, DIM, NORM, Q, CHAINED, true, false>(a, threads, tile, stream,
+                                                         resident);
+    }
+  } else if constexpr (kCount) {
+    return a.carried
+               ? run<KB, DIM, NORM, Q, CHAINED, true, true>(a, threads, tile,
+                                                            stream, resident)
+               : run<KB, DIM, NORM, Q, CHAINED, false, true>(a, threads, tile,
+                                                             stream, resident);
+  }
+  return cudaErrorNotSupported;
 }
 
 // Q per K bucket: the top-K state is 2 * KB registers a query; Q = 2 up to
@@ -431,16 +567,16 @@ cudaError_t pick_q(const Args& a, int q, int threads, int tile,
                    cudaStream_t stream, int* resident) {
   if (a.lb_d != nullptr) {
     if constexpr (KB == 64) {
-      if (q == 1) return run<64, DIM, NORM, 1, true>(a, threads, tile, stream,
-                                                     resident);
+      if (q == 1) return pick_mode<64, DIM, NORM, 1, true>(a, threads, tile, stream,
+                                                           resident);
     }
     return cudaErrorInvalidValue;
   }
-  if (q == 1) return run<KB, DIM, NORM, 1, false>(a, threads, tile, stream,
-                                                  resident);
+  if (q == 1) return pick_mode<KB, DIM, NORM, 1, false>(a, threads, tile, stream,
+                                                        resident);
   if constexpr (DIM > 0 && KB <= 16) {
-    if (q == 2) return run<KB, DIM, NORM, 2, false>(a, threads, tile, stream,
-                                                    resident);
+    if (q == 2) return pick_mode<KB, DIM, NORM, 2, false>(a, threads, tile, stream,
+                                                          resident);
   }
   return cudaErrorInvalidValue;
 }
@@ -483,28 +619,41 @@ cudaError_t dispatch(const Args& a, int norm, int q, int threads, int tile,
 }  // namespace
 
 // p1 (N, P1, D), p2 (N, P2, D) float32; lengths2 (N,) int64; lb_d/lb_i
-// (N, P1) or null (then K <= 64, else K == 64 and q == 1); out_d/out_i
-// (N, P1, K) with 1 <= K <= 64. q queries a thread, threads a block (a
-// multiple of 32, at most 256), tile candidates a staged tile. Returns the
-// launch's cudaError_t.
+// (N, P1) or null (then K <= 64, else K == 64 and q == 1); rows (N, P1)
+// int32, a permutation of each cloud's rows (the order the kernel takes the
+// queries of p1 in; lb and outputs are in that order), or null; cand_ids
+// (N, P2)
+// int32 original indices and starts (N, blocks) int32 start tiles, or both
+// null (p2 in index order); counts (N, blocks, 5) uint64 zeroed, or null;
+// out_d/out_i (N, P1, K) with 1 <= K <= 64. q queries a thread, threads a
+// block (a multiple of 32, at most 256), tile candidates a staged tile;
+// blocks = ceil(P1 / (q * threads)). Returns the launch's cudaError_t.
 extern "C" int knn_topk(const float* p1, const float* p2,
                         const int64_t* lengths2, const float* lb_d,
-                        const int64_t* lb_i, int N, int P1, int P2, int D,
-                        int K, int norm, int q, int threads, int tile,
-                        float* out_d, int64_t* out_i, void* stream) {
+                        const int64_t* lb_i, const int* rows,
+                        const int* cand_ids, const int* starts,
+                        unsigned long long* counts, int N,
+                        int P1, int P2, int D, int K, int norm, int q,
+                        int threads, int tile, float* out_d, int64_t* out_i,
+                        void* stream) {
   if (N <= 0 || P1 <= 0) return cudaSuccess;
-  const Args a{p1, p2, lengths2, lb_d, lb_i, N, P1, P2, D, K, out_d, out_i};
+  if ((cand_ids == nullptr) != (starts == nullptr)) return cudaErrorInvalidValue;
+  const Args a{p1, p2, lengths2, lb_d, lb_i, rows, cand_ids, starts, counts,
+               N, P1, P2, D, K, out_d, out_i, cand_ids != nullptr,
+               counts != nullptr};
   return dispatch(a, norm, q, threads, tile, static_cast<cudaStream_t>(stream),
                   nullptr);
 }
 
-// How many blocks of the (K, D, norm, q) instance fit on one SM of the
-// current device at this block size and tile (0 if none). Returns a
-// cudaError_t.
+// How many blocks of the (K, D, norm, q, carried, count) instance fit on
+// one SM of the current device at this block size and tile (0 if none).
+// Returns a cudaError_t.
 extern "C" int knn_resident_blocks(int K, int D, int norm, int q, int threads,
-                                   int tile, int* blocks) {
+                                   int tile, int carried, int count,
+                                   int* blocks) {
   *blocks = 0;
-  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, 1, D, K,
-               nullptr, nullptr};
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+               nullptr, nullptr, 1, 1, 1, D, K, nullptr, nullptr,
+               carried != 0, count != 0};
   return dispatch(a, norm, q, threads, tile, nullptr, blocks);
 }

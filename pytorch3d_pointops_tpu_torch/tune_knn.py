@@ -12,10 +12,24 @@ and K in {1, 8, 16, 32, 64, 100} it times ``knn_topk_cuda`` under the plan
 it picks and under every other feasible plan (CUDA events, median of 5
 after a warm-up; calls under 1 ms timed 20 at a time), and holds each
 plan's output against ``knn_topk_plain``
-on up to 4,096 queries (indices equal, distances bit-equal). It prints one
-JSON line per shape, then the card's name and power limit. A knn module
-without launch plans is timed under its one launch. Exits 1 without a CUDA
-device.
+on up to 4,096 queries (indices equal, distances bit-equal).
+
+Beside the plans it times the Morton sorts (``kernels/spatial_sort.py``)
+under the plans ``knn_topk_cuda`` picks for them, each call with its sort
+included: queries sorted, candidates sorted and both (the last two where
+the kernel has candidate-sorted instances, K >= 5), each held bit-equal
+to the unsorted call; the kernel alone on orders made beforehand
+(``kernel_ms``); the sorts alone (``sort_ms``); and, where the kernel has
+counting instances (5 <= K <= 64), the counters of one launch unsorted
+and sorted (groups, fired votes, drains, insertions, pending appends;
+``fired_share`` = fired / groups). Then, at shapes between the two sides
+of the query sort's auto gate (``GATE_SHAPES``: one cloud and many clouds
+at 2.5e9-6.4e9 pairs), it times unsorted against queries sorted, sort
+included, and names what the gate picks. It prints one JSON line per
+shape, a table of the sort columns, the gate table, then the card's name
+and power limit. A knn
+module without launch plans or sorts is timed under its one launch,
+unsorted. Exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,8 +44,15 @@ import numpy as np
 import torch
 
 KS = (1, 8, 16, 32, 64, 100)
+# Sort variants: (sort_queries, sort_candidates).
+SORTS = {"unsorted": (False, False), "queries": (True, False),
+         "candidates": (False, True), "both": (True, True)}
 CHECK_QUERIES = 4096
 BATCH = 20
+# (clouds, points a cloud) between 16 x 10,000 (1.6e9 pairs) and the north
+# star (1e10), where the query sort's gate (kernels/knn.py sort_gates) is
+# set: one large cloud and many mid-size ones on each side of 2^32 pairs.
+GATE_SHAPES = ((1, 50_000), (32, 10_000), (1, 70_000), (64, 10_000))
 
 
 def _ms(fn, reps=5):
@@ -74,6 +95,89 @@ def _shapes(rng, dev):
            t(np.full(16, 10_000), torch.int64))
 
 
+def _sort_columns(kk, p1, p2, lengths2, K):
+    """The sort variants' times and counters at one shape and K, each held
+    bit-equal to the unsorted call."""
+    from .kernels import spatial_sort as ss
+
+    base = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sort_queries=False,
+                            sort_candidates=False)
+    out = {"sorted_ms": {}, "sorted_plan": {}}
+    for name, (sq, sc) in SORTS.items():
+        if sc and not kk._carried_instance(p1.shape[2], K, 2):
+            continue
+        kw = dict(sort_queries=sq, sort_candidates=sc)
+        d, i = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, **kw)
+        if not (torch.equal(d, base[0]) and torch.equal(i, base[1])):
+            raise RuntimeError(f"tune_knn: K={K} sorted {name} differs from unsorted")
+        out["sorted_ms"][name] = _ms(lambda: kk.knn_topk_cuda(p1, p2, lengths2, K, 2,
+                                                              **kw))
+        out["sorted_plan"][name] = kk.plan_name(
+            kk.card_plans(p1, p2, K, 2, carried=sc)[0])
+    out["sort_ms"] = {
+        "queries": _ms(lambda: ss.morton_order(p1)),
+        "candidates": _ms(lambda: kk.candidate_order(p1, p2, lengths2)),
+    }
+    # The kernel alone on orders computed beforehand.
+    order, rows = kk.candidate_order(p1, p2, lengths2), ss.morton_order(p1)
+    out["kernel_ms"] = {}
+    for name, (sq, sc) in SORTS.items():
+        if name not in out["sorted_ms"]:
+            continue
+        plan = kk.card_plans(p1, p2, K, 2, carried=sc)[0]
+        r = rows if sq else None
+        args = (p1, p2, lengths2, K, 2, plan, None if r is None else r.int())
+        if sc:
+            starts = kk.scan_starts(p1, order, plan.queries * plan.threads, plan.tile, r)
+            args = (p1, order.points, lengths2, K, 2, plan, args[-1], order.ids, starts)
+        out["kernel_ms"][name] = _ms(lambda: kk._launch_rounds(*args))
+    if kk._counted_instance(p1.shape[2], K, 2):
+        out["counters"] = {}
+        for name, (sq, sc) in SORTS.items():
+            c = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sort_queries=sq,
+                                 sort_candidates=sc, instrument=True)[2]
+            tot = dict(zip(kk.COUNTERS, c.sum(dim=(0, 1)).tolist()))
+            tot["fired_share"] = tot["fired"] / max(tot["groups"], 1)
+            out["counters"][name] = tot
+    return out
+
+
+def _gate_table(kk, rng, dev):
+    """Lines of unsorted / queries-sorted ms (sort included) at each of
+    ``GATE_SHAPES`` and K >= 8, each sorted call held bit-equal to the
+    unsorted one, with the gate's pick."""
+    lines = []
+    for N, P in GATE_SHAPES:
+        p1, p2 = (torch.randn((N, P, 3), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(s))
+                  for s in rng.integers(0, 2**31, size=2).tolist())
+        lengths2 = torch.full((N,), P, dtype=torch.int64, device=dev)
+        for K in KS[1:]:
+            ms = {}
+            for name in ("unsorted", "queries"):
+                kw = dict(sort_queries=name == "queries", sort_candidates=False)
+                ms[name] = _ms(lambda: kk.knn_topk_cuda(p1, p2, lengths2, K, 2, **kw))
+            base = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sort_queries=False)
+            srt = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sort_queries=True)
+            if not (torch.equal(base[0], srt[0]) and torch.equal(base[1], srt[1])):
+                raise RuntimeError(f"tune_knn: {N} x {P} K={K} sorted queries differ")
+            pick = kk.sort_gates(N * P * P, K, True)[0]
+            lines.append(f"{N} x {P:,} | {N * P * P:.2e} | {K} | {ms['unsorted']:.3f} | "
+                         f"{ms['queries']:.3f} | {ms['queries'] / ms['unsorted']:.3f} | "
+                         f"{'queries' if pick else 'unsorted'}")
+            print(lines[-1], flush=True)
+    return lines
+
+
+def _table_line(label, K, r):
+    ms = " / ".join(f"{r['sorted_ms'][n]:.3f} ({r['kernel_ms'][n]:.3f})"
+                    if n in r["sorted_ms"] else "-" for n in SORTS)
+    sorts = " / ".join(f"{v:.3f}" for v in r["sort_ms"].values())
+    share = " / ".join(f"{r['counters'][n]['fired_share']:.4f}"
+                       for n in ("unsorted", "queries", "both")) if "counters" in r else "-"
+    return f"{label} | {K} | {ms} | {sorts} | {share}"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -88,7 +192,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
     card_plans = getattr(kk, "card_plans", None)
-    lines = []
+    has_sorts = hasattr(kk, "candidate_order")
+    lines, table = [], []
     for label, p1, p2, lengths2 in _shapes(rng, dev):
         N, P1, _ = p1.shape
         sub = min(P1, -(-CHECK_QUERIES // N))
@@ -101,6 +206,8 @@ def main() -> int:
             times = {}
             for plan in plans:
                 kw = {} if plan is None else {"_plan": plan}
+                if has_sorts:
+                    kw.update(sort_queries=False, sort_candidates=False)
                 d, i = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, **kw)
                 d, i = _apply_pad_conventions(d[:, :sub], i[:, :sub],
                                               lengths2.new_full((N,), sub),
@@ -112,8 +219,20 @@ def main() -> int:
                 times[name] = _ms(lambda: kk.knn_topk_cuda(p1, p2, lengths2, K, 2, **kw))
             pick = "default" if chosen is None else kk.plan_name(chosen)
             row["K"][K] = {"plan": pick, "ms": times[pick], "plans": times}
+            if has_sorts:
+                row["K"][K].update(_sort_columns(kk, p1, p2, lengths2, K))
+                table.append(_table_line(label, K, row["K"][K]))
         lines.append(json.dumps(row))
         print(lines[-1], flush=True)
+    if table:
+        print("shape | K | unsorted / queries / candidates / both sorted ms, sorts "
+              "included (kernel alone) | sorts alone ms (queries / candidates) | "
+              "fired share unsorted / queries / both")
+        print("\n".join(table))
+        head = ("gate shape | pairs | K | unsorted ms | queries sorted ms (sort "
+                "included) | ratio | the gate's pick")
+        print(head)
+        table += [head, *_gate_table(kk, rng, dev)]
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
@@ -121,7 +240,7 @@ def main() -> int:
     print(gpu)
     if args.out:
         with open(args.out, "a") as f:
-            f.write("\n".join(lines) + "\n" + gpu + "\n")
+            f.write("\n".join(lines + table) + "\n" + gpu + "\n")
     return 0
 
 

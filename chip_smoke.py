@@ -81,7 +81,22 @@ query's indices and distances, both gradients), the backward's 16M-entry
 scatter against the plain twin (bit-equal on CPU copies), with the
 forward, backward and scatter times; and runs ``packed_to_padded``,
 ``padded_to_packed`` (with gradients) and ``sample_pdf`` on the card
-against CPU tensors. The line
+against CPU tensors.
+
+Phase 5 checks the KNN kernel's kth-bound seeding: the north-star
+``knn_points`` step at K=100 (seeded by default: the sample pass, two
+seeded 64-key rounds with the queries sorted, two gated repair launches
+that return at once, the backward's scatter) as a main path with its own
+launch counts, its forward under ``torch.cuda.set_sync_debug_mode("error")``,
+against the plain path on the card (every query's indices and distances,
+both gradients); seeded calls bit-equal to unseeded ones at the north star
+(K=100 in both norms, K=16 and K=64 opted in), on the 20k tie cloud, the
+duplicated cloud and the ragged batch (bounds off for its lengths 0 and 1),
+each with the queries, the candidates and both sorted, all without a host
+sync; bounds of -1 forcing the repair (its gate word 1, four launches, the
+result exact); a raw ``ub=`` round bit-equal to the plain twin, sentinel
+slots included; the counters' insertions with and without a seed at K=16
+and 64; and seeded against unseeded times. The line
 before the last is one JSON object with a record per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line. Without CUDA it exits 1 at once.
@@ -443,6 +458,190 @@ def phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,
     print(f"  packed_to_padded, padded_to_packed and their gradients equal on card and "
           f"CPU; sample_pdf / sample_pdf_python det=True max abs err {err:.3g} / "
           f"{py_err:.3g}; det=False inside the support")
+    return cases
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Raise on any host sync a PyTorch op makes inside the block."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def phase5(cases, plain_path, note_err):
+    """Kth-bound seeding of the KNN kernel: the north-star K=100
+    ``knn_points`` step (seeded by default) as a main path with its own
+    launch counts, against the plain path on the card; seeded calls
+    bit-equal to unseeded ones; the repair forced by too-tight bounds; a
+    raw ``ub=`` round bit-equal to the plain twin; the counters' insertions
+    with and without a seed; seeded and unseeded times. Every seeded call
+    runs under ``no_host_sync``."""
+    import pytorch3d_pointops_tpu_torch as ppt
+    from pytorch3d_pointops_tpu_torch.kernels import knn as kk
+    from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
+
+    _, ns_p1, ns_p2, ns_len = cases[0][:4]
+    dev = ns_p1.device
+    s_ns = kk._default_sample_s(100000)
+
+    # The north-star step at K=100, a main path: the sample pass, two seeded
+    # 64-key rounds with the queries sorted, the gated repair launches and
+    # the backward's scatter, every launch counter set to 0 just before.
+    q = ns_p1.detach().requires_grad_(True)
+    r = ns_p2.detach().requires_grad_(True)
+    c5 = (kk.knn_topk_cuda, ks.scatter_add_rows)
+    for c in c5:
+        c.launches = 0
+    # -- the K=100 main path: nothing but what a user would call --
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_host_sync():
+        out = ppt.knn_points(q, r, K=100)
+    out.dists.sum().backward()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches5 = {c.__name__: c.launches for c in c5}
+    # -- end of the K=100 main path --
+    print(f"phase 5: north-star K=100 launches {json.dumps(launches5)} (sample pass, "
+          f"2 seeded rounds, 2 gated repair launches; scatter); fwd+bwd {step_ms:.1f} ms "
+          "(first call; the forward without a host sync)")
+    require(launches5 == {"knn_topk_cuda": 5, "scatter_add_rows": 1},
+            f"north-star K=100: launches {launches5}")
+    require(bool(torch.isfinite(out.dists).all()) and bool(torch.isfinite(q.grad).all())
+            and q.grad.abs().max() > 0 and r.grad.abs().max() > 0,
+            "north-star K=100: dists or gradients not finite or zero")
+    q2 = ns_p1.detach().requires_grad_(True)
+    r2 = ns_p2.detach().requires_grad_(True)
+    t0 = time.perf_counter()
+    with plain_path():
+        outp = ppt.knn_points(q2, r2, K=100)
+        outp.dists.sum().backward()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    derr = (out.dists - outp.dists).abs().max().item()
+    gerr = [(a - b).abs().max().item() for a, b in ((q.grad, q2.grad), (r.grad, r2.grad))]
+    note_err("knn", derr)
+    require(torch.equal(out.idx, outp.idx), "north-star K=100: idx differ from the plain path")
+    require(derr <= TOL and torch.allclose(q.grad, q2.grad, rtol=TOL, atol=TOL)
+            and torch.allclose(r.grad, r2.grad, rtol=TOL, atol=TOL),
+            f"north-star K=100: dists err {derr}, grads err {gerr} against the plain path")
+    tau = kk.kth_bounds(ns_p1, ns_p2, ns_len, kk._quantiles(100, 100000), 2, s_ns)
+    plan = kk.card_plans(ns_p1, ns_p2, 100, 2)[0]
+    raw = kk._launch_rounds(ns_p1, ns_p2, ns_len, 100, 2, plan,
+                            seeds=[kk.seed_of(t) for t in tau])
+    print(f"  against the plain path on the card ({plain_s:.1f} s): idx equal for all "
+          f"100,000 queries, dists max abs err {derr:.3g}, grads {gerr[0]:.3g} / "
+          f"{gerr[1]:.3g}; the sampled bounds' repair word "
+          f"{int(kk.repair_gate(raw[1].split(kk.ROUND_K, dim=2), ns_len, 100))} (0: no "
+          "rerun was needed)")
+
+    # Seeded bit-equal to unseeded: each case with each sort (candidates
+    # where the kernel has carried instances), both norms at the north star
+    # K=100; single rounds opt in with sample_bound=True.
+    rag = cases[3]
+    sweep = [
+        ("north star", ns_p1, ns_p2, ns_len, ((100, 1), (100, 2), (16, 2), (64, 2)), None),
+        ("tie cloud 20k", *cases[2][1:4], ((100, 2), (16, 2)), None),
+        ("duplicated 10k x 2 x 10k", *cases[4][1:4], ((100, 2), (16, 2)), None),
+        # lengths2 0, 1 (under P2 // 2: bounds off) and P2 - 1, garbage past them.
+        ("ragged 3 x 3000 x 5000", *rag[1:4], ((100, 2), (100, 1), (16, 2)), 1024),
+    ]
+    t0 = time.perf_counter()
+    calls = 0
+    for label, q, r, l2, kn, s in sweep:
+        for K, norm in kn:
+            base = kk.knn_topk_cuda(q, r, l2, K, norm, sort_queries=False,
+                                    sort_candidates=False, sample_bound=False)
+            for sq, sc in ((False, False), (True, False), (False, True), (True, True)):
+                if sc and not kk._carried_instance(3, K, norm):
+                    continue
+                with no_host_sync():
+                    d, i = kk.knn_topk_cuda(q, r, l2, K, norm, sort_queries=sq,
+                                            sort_candidates=sc, sample_bound=True,
+                                            sample_s=s)
+                calls += 1
+                require(torch.equal(d, base[0]) and torch.equal(i, base[1]),
+                        f"seeded knn {label} K={K} norm={norm} queries={sq} cands={sc}: "
+                        "differs from unseeded")
+    print(f"  seeded bit-equal to unseeded in {calls} calls, each sort, no host sync: "
+          + "; ".join(f"{c[0]} (K, norm) {list(c[4])}" for c in sweep)
+          + f" ({time.perf_counter() - t0:.1f} s)")
+
+    # The repair forced: every bound -1 leaves SENT in every slot; the gate
+    # word is 1, both rounds run again, and the result is the unseeded one.
+    seeds = [kk.seed_of(torch.full((1, 100000), -1.0, device=dev))] * 2
+    bad = kk._launch_rounds(ns_p1, ns_p2, ns_len, 100, 2, plan, seeds=seeds)
+    gate = int(kk.repair_gate(bad[1].split(kk.ROUND_K, dim=2), ns_len, 100))
+    real = kk.kth_bounds
+    kk.kth_bounds = lambda p1, p2, l2, kqs, norm, s, rows=None: [
+        torch.full(p1.shape[:2], -1.0, device=p1.device) for _ in kqs]
+    try:
+        kk.knn_topk_cuda.launches = 0
+        with no_host_sync():
+            forced = kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, 100, 2)
+        forced_launches = kk.knn_topk_cuda.launches
+    finally:
+        kk.kth_bounds = real
+    base = kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, 100, 2, sample_bound=False)
+    require(gate == 1 and forced_launches == 4 and torch.equal(forced[0], base[0])
+            and torch.equal(forced[1], base[1]),
+            f"forced repair: gate {gate}, {forced_launches} launches, or not exact")
+    # A raw ub= round (no repair) against the plain twin, SENT slots
+    # included: a bound at each query's 8th distance, K=16.
+    sub = ns_p1[:, :4096].contiguous()
+    d16, _ = kk.knn_topk_cuda(sub, ns_p2, ns_len, 16, 2, sample_bound=False)
+    ub = d16[..., 7].contiguous()
+    for sq in (False, True):
+        with no_host_sync():
+            rk = kk.knn_topk_cuda(sub, ns_p2, ns_len, 16, 2, ub=ub, sort_queries=sq)
+        rp = kk.knn_topk_plain(sub, ns_p2, ns_len, 16, 2, ub=ub)
+        require(torch.equal(rk[0], rp[0]) and torch.equal(rk[1], rp[1]),
+                f"raw ub= round (queries sorted {sq}): differs from the plain twin")
+    print(f"  forced repair (bounds -1): repair word {gate}, {forced_launches} launches, "
+          f"result bit-equal to unseeded; raw ub= K=16 round bit-equal to the plain "
+          f"twin on 4,096 queries, {int((rk[1] == kk.SENT).sum())} SENT slots")
+
+    # Insertions with and without a seed: the counters of one launch, the
+    # seed from the sampled bound of the round's own K.
+    ins = {}
+    for K in (16, 64):
+        tau_k = kk.kth_bounds(ns_p1, ns_p2, ns_len, [K], 2, s_ns)[0]
+        row = {}
+        for name, kw in (("unseeded", {}), ("seeded", {"ub": tau_k})):
+            for sq in (False, True):
+                c = kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, K, 2, sort_queries=sq,
+                                     instrument=True, **kw)[2]
+                tot = dict(zip(kk.COUNTERS, c.sum(dim=(0, 1)).tolist()))
+                row[f"{name}{' sorted' if sq else ''}"] = {
+                    "insertions a query": tot["admissions"] / 100000,
+                    "fired share": tot["fired"] / tot["groups"]}
+        ins[K] = row
+        require(row["seeded"]["insertions a query"] < row["unseeded"]["insertions a query"],
+                f"K={K}: a seed did not cut the insertions")
+    print(f"  north-star counters, one launch, unseeded / seeded at the sampled bound: "
+          f"{json.dumps(ins)}")
+
+    # Times at the north star: knn_topk_cuda with the queries sorted where the
+    # gate sorts them, seeded against unseeded, and the bounds alone.
+    ms = {}
+    for K in (16, 64, 100):
+        sb = None if K > kk.ROUND_K else True
+        ms[K] = {
+            "unseeded": cuda_ms(lambda: kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, K, 2,
+                                                         sample_bound=False), reps=5),
+            "seeded": cuda_ms(lambda: kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, K, 2,
+                                                       sample_bound=sb), reps=5),
+            "bounds alone": cuda_ms(lambda: kk.kth_bounds(
+                ns_p1, ns_p2, ns_len, kk._quantiles(K, 100000), 2, s_ns), reps=5),
+        }
+    print(f"  north-star knn_topk_cuda ms (queries sorted where gated; seeded K <= 64 "
+          f"opted in): {json.dumps(ms)}")
+
+
 
 
 def main() -> int:
@@ -503,6 +702,8 @@ def main() -> int:
             print(f"  knn_topk_kernel DIM={kdim} norm={knorm}: {' '.join(items)}")
         spilled = [k for k, (_, s) in instances.items() if k[1] == 3 and s]
         require(instances and not spilled, f"knn D=3 instances spill: {spilled}")
+        # Seeding reads its seeds and gate at run time: no instance of its own.
+        require(len(instances) == 93, f"knn: {len(instances)} instances, not 93")
         require(any(k[5] for k in instances) and any(k[6] for k in instances),
                 "knn: no candidate-sorted or no counting instance was built")
     fps_log = os.path.join(_build.BUILD_DIR, "fps.ptxas.log")
@@ -1122,8 +1323,11 @@ def main() -> int:
     print("  large-cloud FPS vs plain: idx equal (1M K=1024, 4M K=512)")
 
     # ---------------- phase 4: Morton sorting, config 4, the last ops ----------------
-    phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,
-           note_err)
+    cases = phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,
+                   note_err)
+
+    # ---------------- phase 5: kth-bound seeding ----------------
+    phase5(cases, plain_path, note_err)
 
     # ---------------- kernel times at the main path's shapes ----------------
     records = []

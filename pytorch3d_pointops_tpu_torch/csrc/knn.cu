@@ -62,6 +62,20 @@
 // past lengths2 were sorted last by the wrapper, so the
 // truncation by position stays right.
 //
+// Seeding (ports knn_pallas.py's seeded kernel): the wrapper may pass ub,
+// one seed a query in the kernel's query order, the next float above a
+// sampled upper bound on its kth distance. The state then starts as K
+// entries (seed, kSent) instead of (inf, 0), so the vote screens at the
+// bound from the first tile and a query inserts only the candidates below
+// it. The rules above hold unchanged: a candidate equal to the seed sorts
+// after the seed entries without CARRIED (v > d) and before them with it
+// (i == kSent > j): a superset admission into an exact insert. A kSent left
+// in a slot the cloud could have filled means the bound was too tight; the
+// wrapper detects that on the device and reruns every round unseeded,
+// gated on that word (gate: every block returns at once while it is 0). A
+// seed of +inf is no seed: that query starts at (inf, 0). ub and gate are
+// read once a block, so the instances are those of the unseeded kernel.
+//
 // Counting (COUNT; ports knn_pallas.py's instrument): per block, the groups
 // its warps scanned, the votes that fired, the drains that had work, the
 // insertions into the top-K, and the candidates that passed the screen into
@@ -80,6 +94,8 @@ namespace {
 constexpr int kMaxThreads = 256;
 constexpr int kGroupSlots = 16;  // Q * U: distances a thread holds per vote
 constexpr size_t kDefaultSmem = 48 * 1024;
+// The index of a seed entry (knn_pallas.py _SENT): above every real index.
+constexpr int kSent = 0x7fffffff;
 
 // Floats a staged candidate takes: padded to a 16-byte multiple for D <= 8.
 __host__ __device__ inline int stride_of(int dim, int D) {
@@ -383,9 +399,11 @@ __global__ void __launch_bounds__(kMaxThreads) knn_topk_kernel(
     const int64_t* __restrict__ lengths2, const float* __restrict__ lb_d,
     const int64_t* __restrict__ lb_i, const int* __restrict__ rows,
     const int* __restrict__ cand_ids, const int* __restrict__ starts,
-    unsigned long long* __restrict__ counts, int P1, int P2, int D, int K,
-    int tile, float* __restrict__ out_d, int64_t* __restrict__ out_i) {
+    unsigned long long* __restrict__ counts, const float* __restrict__ ub,
+    const int* __restrict__ gate, int P1, int P2, int D, int K, int tile,
+    float* __restrict__ out_d, int64_t* __restrict__ out_i) {
   using State = Scan<KB, DIM, NORM, Q, CHAINED, CARRIED, COUNT>;
+  if (gate != nullptr && *gate == 0) return;  // a repair rerun not needed
   extern __shared__ float4 smem_f4[];
   float* const stage = reinterpret_cast<float*>(smem_f4);
   const int S = stride_of(DIM, D);
@@ -393,7 +411,7 @@ __global__ void __launch_bounds__(kMaxThreads) knn_topk_kernel(
   const int first = blockIdx.x * Q * blockDim.x + threadIdx.x;
 
   // Rows past P1 compute on the cloud's first query but never admit: their
-  // kth is -inf.
+  // kth is -inf. A finite seed starts the state at (seed, kSent).
   State st;
   st.pend = reinterpret_cast<int*>(stage + 2 * tile * S);
   st.D = D;
@@ -410,10 +428,12 @@ __global__ void __launch_bounds__(kMaxThreads) knn_topk_kernel(
     for (int d = 0; d < State::QD; ++d) {
       st.qv[qq][d] = (DIM == 3 || (DIM > 0 && d < D)) ? st.qp[qq][d] : 0.f;
     }
+    const float seed = ub != nullptr && active ? ub[row] : INFINITY;
+    const bool seeded = seed < INFINITY;
 #pragma unroll
     for (int s = 0; s < KB; ++s) {
-      st.bd[qq][s] = active ? INFINITY : -INFINITY;
-      st.bi[qq][s] = 0;
+      st.bd[qq][s] = active ? seed : -INFINITY;
+      st.bi[qq][s] = seeded ? kSent : 0;
     }
     st.lbd[qq] = 0.f;
     st.lbi[qq] = 0;
@@ -496,6 +516,8 @@ struct Args {
   const int* cand_ids;
   const int* starts;
   unsigned long long* counts;
+  const float* ub;
+  const int* gate;
   int N, P1, P2, D, K;
   float* out_d;
   int64_t* out_i;
@@ -523,7 +545,7 @@ cudaError_t run(const Args& a, int threads, int tile, cudaStream_t stream,
   const dim3 grid((a.P1 + Q * threads - 1) / (Q * threads), a.N);
   kernel<<<grid, threads, smem, stream>>>(
       a.p1, a.p2, a.lengths2, a.lb_d, a.lb_i, a.rows, a.cand_ids, a.starts,
-      a.counts, a.P1, a.P2, a.D, a.K, tile, a.out_d, a.out_i);
+      a.counts, a.ub, a.gate, a.P1, a.P2, a.D, a.K, tile, a.out_d, a.out_i);
   return cudaGetLastError();
 }
 
@@ -625,21 +647,24 @@ cudaError_t dispatch(const Args& a, int norm, int q, int threads, int tile,
 // (N, P2)
 // int32 original indices and starts (N, blocks) int32 start tiles, or both
 // null (p2 in index order); counts (N, blocks, 5) uint64 zeroed, or null;
-// out_d/out_i (N, P1, K) with 1 <= K <= 64. q queries a thread, threads a
+// ub (N, P1) float32 seeds in the kernel's query order, or null (unseeded);
+// gate one int32 on the device, or null: while it is 0 the launch does
+// nothing; out_d/out_i (N, P1, K) with 1 <= K <= 64. q queries a thread, threads a
 // block (a multiple of 32, at most 256), tile candidates a staged tile;
 // blocks = ceil(P1 / (q * threads)). Returns the launch's cudaError_t.
 extern "C" int knn_topk(const float* p1, const float* p2,
                         const int64_t* lengths2, const float* lb_d,
                         const int64_t* lb_i, const int* rows,
                         const int* cand_ids, const int* starts,
-                        unsigned long long* counts, int N,
+                        unsigned long long* counts, const float* ub,
+                        const int* gate, int N,
                         int P1, int P2, int D, int K, int norm, int q,
                         int threads, int tile, float* out_d, int64_t* out_i,
                         void* stream) {
   if (N <= 0 || P1 <= 0) return cudaSuccess;
   if ((cand_ids == nullptr) != (starts == nullptr)) return cudaErrorInvalidValue;
   const Args a{p1, p2, lengths2, lb_d, lb_i, rows, cand_ids, starts, counts,
-               N, P1, P2, D, K, out_d, out_i, cand_ids != nullptr,
+               ub, gate, N, P1, P2, D, K, out_d, out_i, cand_ids != nullptr,
                counts != nullptr};
   return dispatch(a, norm, q, threads, tile, static_cast<cudaStream_t>(stream),
                   nullptr);
@@ -653,7 +678,7 @@ extern "C" int knn_resident_blocks(int K, int D, int norm, int q, int threads,
                                    int* blocks) {
   *blocks = 0;
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-               nullptr, nullptr, 1, 1, 1, D, K, nullptr, nullptr,
-               carried != 0, count != 0};
+               nullptr, nullptr, nullptr, nullptr, 1, 1, 1, D, K, nullptr,
+               nullptr, carried != 0, count != 0};
   return dispatch(a, norm, q, threads, tile, nullptr, blocks);
 }

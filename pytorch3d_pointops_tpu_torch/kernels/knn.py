@@ -8,7 +8,8 @@ the K smallest squared-L2 (norm 2) or L1 (norm 1) distances to the first
 ``lengths2[n]`` points of its cloud, in ascending (value, index) order (on
 ties the lowest index wins), with int64 indices. Slots past ``lengths2`` and
 rows past ``lengths1`` are not zeroed here: callers apply the pad
-conventions (``ops.knn._apply_pad_conventions``).
+conventions (``ops.knn._apply_pad_conventions``); an entry whose value is
++inf has index 0 on both paths.
 
 The kernel replaces ``pytorch3d_pointops_tpu/kernels/knn_pallas.py``
 ``knn_forward_pallas``; the design note is at the top of ``csrc/knn.cu``.
@@ -28,18 +29,37 @@ are the same again. ``None`` means the measured auto gate (``sort_gates``); ``Tr
 CPU tensors runs the same permutations around the plain version, whose
 ties are then broken by the carried indices too. ``instrument=True`` also
 returns the kernel's per-block counters (``COUNTERS``).
+
+Kth-bound seeding, the JAX kernel's ``sample_bound`` (``knn_pallas.py``
+``_bigk_round_bounds``, ``_repair_sentinels``): one KNN over a strided
+sample of each cloud gives every round a per-query upper bound on its
+closing quantile (``kth_bounds``), and each round's top-K state starts at
+that bound with ``SENT`` indices, so a query inserts only the candidates
+below it. A ``SENT`` left in a slot the cloud could fill means a bound was
+too tight: that is detected on the device, and every round reruns
+unseeded, gated on the detection word, so there is no host sync and the
+result is the unseeded one bit for bit. Slots past ``lengths2`` then hold
+(inf, 0), as unseeded (JAX's raw output keeps the seed value there). The
+order is: one query sort and one candidate sort, then the sample pass in
+the queries' order, the seeded rounds and the repair. ``None`` means the
+measured gate (``seed_gate``); ``ub=`` seeds one round from a bound the
+caller gives and returns the raw state, ``SENT`` slots included.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import logging
+import math
 from typing import Callable, NamedTuple
 
 import torch
 
 from .. import _build
 from . import spatial_sort as _ss
+
+logger = logging.getLogger(__name__)
 
 # Keys per kernel round; K > ROUND_K chains rounds behind an exclusive
 # (value, index) lower bound, as the TPU kernel does.
@@ -68,6 +88,27 @@ COUNTERS = ("groups", "fired", "drains", "admissions", "screened")
 # 16-key one at config 4 (1e12) but within noise up to the north star
 # (1e10), so that threshold is interpolated.
 SORT_QUERIES_MIN_PAIRS = {16: 10**11, 32: 6 * 10**9, 64: 2 * 10**9}
+
+# The index of a seed entry (csrc/knn.cu kSent, knn_pallas.py _SENT): a
+# slot still holding it was never filled below the seed.
+SENT = 2**31 - 1
+
+# Sampled kth bounds (knn_pallas.py's constants, so the bounds are the same
+# numbers): round r is seeded at the m_r-th smallest distance of an s-point
+# sample, m_r = ceil(mu + SIGMA * sqrt(mu) + ABS) with mu = s * kq_r /
+# lengths2 the expected sample count below the round's closing quantile
+# kq_r. The margin only sets how often the repair runs; results never
+# depend on it.
+_BOUND_MARGIN_SIGMA = 6.0
+_BOUND_MARGIN_ABS = 8.0
+# The deepest sample rank a bound may take.
+_MAX_RANK = 512
+
+# K buckets of one round in which the auto gate (None) seeds single-round
+# calls: none, as in the JAX package (tune_knn.py on an H100 80GB HBM3 at
+# 700 W measured no gain worth the sample pass, PERF.md). Calls of K > 64
+# are always seeded where a sample applies.
+SEED_SINGLE_ROUND_BUCKETS: frozenset[int] = frozenset()
 
 
 class Plan(NamedTuple):
@@ -165,6 +206,7 @@ _TILE_P1 = 2048
 _TILE_P2 = 2048
 
 _INF = float("inf")
+_FLT_MIN = torch.finfo(torch.float32).tiny
 
 
 def pairwise_dist(x: torch.Tensor, y: torch.Tensor, norm: int) -> torch.Tensor:
@@ -191,34 +233,73 @@ def _topk_rows(d: torch.Tensor, idx: torch.Tensor, K: int, lex: bool = False):
     return vals[..., :K], torch.gather(idx, -1, order[..., :K])
 
 
-def _knn_forward_full(p1, p2, lengths2, K, norm, ids=None):
-    """Single-shot distance matrix and a stable sort (small problems).
-    ``ids``: each p2 row's original index (int64), when p2 is reordered."""
-    P2 = p2.shape[1]
-    d = pairwise_dist(p1, p2, norm)
-    j = torch.arange(P2, device=p1.device)
-    d = torch.where(j[None, None, :] < lengths2[:, None, None], d, _INF)
-    idx = j.expand_as(d) if ids is None else ids[:, None, :].expand_as(d)
-    vals, idx = _topk_rows(d, idx, min(K, P2), lex=ids is not None)
-    if K > P2:
-        vals = torch.nn.functional.pad(vals, (0, K - P2), value=_INF)
-        idx = torch.nn.functional.pad(idx, (0, K - P2))
+def seed_of(ub: torch.Tensor) -> torch.Tensor:
+    """The kernel's seed for an inclusive bound ``ub`` (float32): the next
+    float up, so that a distance equal to ``ub`` is admitted, and at least
+    the smallest normal float (knn_pallas.py's rule; a larger seed only
+    admits more). +inf stays +inf: no seed."""
+    return torch.clamp_min(torch.nextafter(ub, torch.full_like(ub, _INF)), _FLT_MIN)
+
+
+def _seed_state(seed, K):
+    """The state a seeded round starts from, (..., K) values and int64
+    indices: (seed, SENT) where the seed is finite, else (inf, 0)."""
+    finite = seed < _INF
+    vals = seed[..., None].expand(*seed.shape, K)
+    idx = torch.where(finite, SENT, 0)[..., None].expand(*seed.shape, K)
     return vals, idx
 
 
-def _knn_single_tiled(x, y, len2, K, norm, tile_p2, ids=None):
+def _keep(d, pos, j, len2, lb):
+    """Where a candidate may enter a round: its position below lengths2
+    and, with ``lb`` = (values, indices) broadcastable against d, its
+    (value, index) strictly above that lower bound."""
+    keep = pos < len2
+    if lb is not None:
+        keep = keep & ((d > lb[0]) | ((d == lb[0]) & (j > lb[1])))
+    return keep
+
+
+def _knn_forward_full(p1, p2, lengths2, K, norm, ids=None, lb=None, seed=None):
+    """Single-shot distance matrix and a stable sort (small problems).
+    ``ids``: each p2 row's original index (int64), when p2 is reordered;
+    ``lb``/``seed``: see ``_plain_round``."""
+    P2 = p2.shape[1]
+    d = pairwise_dist(p1, p2, norm)
+    j = torch.arange(P2, device=p1.device)
+    jj = j[None, None, :] if ids is None else ids[:, None, :]
+    lbx = None if lb is None else (lb[0][..., None], lb[1][..., None])
+    d = torch.where(_keep(d, j[None, None, :], jj, lengths2[:, None, None], lbx),
+                    d, _INF)
+    idx = jj.expand_as(d)
+    if seed is not None:
+        sd, si = _seed_state(seed, K)
+        d, idx = torch.cat([sd, d], dim=-1), torch.cat([si, idx], dim=-1)
+    vals, idx = _topk_rows(d, idx, min(K, d.shape[-1]), lex=ids is not None)
+    if K > vals.shape[-1]:
+        vals = torch.nn.functional.pad(vals, (0, K - vals.shape[-1]), value=_INF)
+        idx = torch.nn.functional.pad(idx, (0, K - idx.shape[-1]))
+    return vals, idx
+
+
+def _knn_single_tiled(x, y, len2, K, norm, tile_p2, ids=None, lb=None, seed=None):
     """Streaming KNN for one cloud: scan tiles of y and merge a running
     top-K. Carried entries go first, so ties keep the earlier index (with
-    ``ids``, y's original indices, ties are broken by those)."""
+    ``ids``, y's original indices, ties are broken by those). ``lb``
+    (values, indices) (C1,) and ``seed`` (C1,): see ``_plain_round``."""
     C1 = x.shape[0]
-    cd = x.new_full((C1, K), _INF)
-    ci = torch.zeros((C1, K), dtype=torch.int64, device=x.device)
+    if seed is None:
+        cd = x.new_full((C1, K), _INF)
+        ci = torch.zeros((C1, K), dtype=torch.int64, device=x.device)
+    else:
+        cd, ci = _seed_state(seed, K)
+    lbx = None if lb is None else (lb[0][:, None], lb[1][:, None])
     for off in range(0, y.shape[0], tile_p2):
         yt = y[off : off + tile_p2]
         pos = torch.arange(off, off + yt.shape[0], device=x.device)
         j = pos if ids is None else ids[off : off + yt.shape[0]]
         d = pairwise_dist(x, yt, norm)
-        d = torch.where(pos[None, :] < len2, d, _INF)
+        d = torch.where(_keep(d, pos[None, :], j[None, :], len2, lbx), d, _INF)
         cd, ci = _topk_rows(
             torch.cat([cd, d], dim=1),
             torch.cat([ci, j.expand(C1, -1)], dim=1),
@@ -228,7 +309,7 @@ def _knn_single_tiled(x, y, len2, K, norm, tile_p2, ids=None):
     return cd, ci
 
 
-def _knn_forward_tiled(p1, p2, lengths2, K, norm, ids=None):
+def _knn_forward_tiled(p1, p2, lengths2, K, norm, ids=None, lb=None, seed=None):
     """Tiled streaming forward for large problems: P1 in chunks, P2 in
     tiles, one cloud at a time."""
     N, P1, _ = p1.shape
@@ -236,32 +317,49 @@ def _knn_forward_tiled(p1, p2, lengths2, K, norm, ids=None):
     idx = torch.empty((N, P1, K), dtype=torch.int64, device=p1.device)
     for n in range(N):
         for a in range(0, P1, _TILE_P1):
-            vals[n, a : a + _TILE_P1], idx[n, a : a + _TILE_P1] = (
-                _knn_single_tiled(
-                    p1[n, a : a + _TILE_P1], p2[n], lengths2[n], K, norm,
-                    _TILE_P2, None if ids is None else ids[n],
-                )
+            rows = slice(a, a + _TILE_P1)
+            vals[n, rows], idx[n, rows] = _knn_single_tiled(
+                p1[n, rows], p2[n], lengths2[n], K, norm, _TILE_P2,
+                None if ids is None else ids[n],
+                None if lb is None else (lb[0][n, rows], lb[1][n, rows]),
+                None if seed is None else seed[n, rows],
             )
     return vals, idx
 
 
-def knn_topk_plain(p1, p2, lengths2, K: int, norm: int, cand_ids=None):
+def _plain_round(p1, p2, lengths2, K, norm, ids=None, lb=None, seed=None):
+    """One round of the kernel in plain PyTorch. ``lb`` = (values, int64
+    indices), each (N, P1): a chained round's exclusive (value, index)
+    lower bound. ``seed`` (N, P1): the state starts at K entries (seed,
+    ``SENT``) where it is finite; these sort before candidates of equal
+    value, and after them with ``ids`` (the kernel's carried rule: SENT is
+    the largest index). An entry of value +inf takes index 0, as the
+    kernel never admits one."""
+    N, P1, _ = p1.shape
+    if N * P1 * p2.shape[1] <= _FULL_MATRIX_MAX_ELEMS:
+        vals, idx = _knn_forward_full(p1, p2, lengths2, K, norm, ids, lb, seed)
+    else:
+        vals, idx = _knn_forward_tiled(p1, p2, lengths2, K, norm, ids, lb, seed)
+    return vals, torch.where(vals == _INF, 0, idx)
+
+
+def knn_topk_plain(p1, p2, lengths2, K: int, norm: int, cand_ids=None, ub=None):
     """Plain PyTorch twin of the kernel, on any device: the full distance
     matrix for small problems, the tiled stream for large ones. With
     ``cand_ids`` (N, P2), p2 is reordered (its valid rows first) and
     ``cand_ids`` holds each row's original index: the indices returned are
-    those, ties broken by them, as the kernel's carried instances do."""
-    N, P1, _ = p1.shape
+    those, ties broken by them, as the kernel's carried instances do.
+    ``ub`` (N, P1) float32: the raw seeded round of ``knn_topk(ub=)``,
+    slots not filled below ``seed_of(ub)`` left at (that seed, ``SENT``)."""
     ids = None if cand_ids is None else cand_ids.to(torch.int64)
-    if N * P1 * p2.shape[1] <= _FULL_MATRIX_MAX_ELEMS:
-        return _knn_forward_full(p1, p2, lengths2, K, norm, ids)
-    return _knn_forward_tiled(p1, p2, lengths2, K, norm, ids)
+    return _plain_round(p1, p2, lengths2, K, norm, ids, None,
+                        None if ub is None else seed_of(ub))
 
 
 @functools.cache
 def _lib():
     lib = _build.load("knn")
-    lib.knn_topk.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+    lib.knn_topk.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.knn_resident_blocks.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -351,6 +449,121 @@ def sort_gates(pairs: int, K: int, on_cuda: bool, sort_queries=None,
     return bool(sort_queries), bool(sort_candidates)
 
 
+def _default_sample_s(P2: int) -> int:
+    """The sample size of the bounds (knn_pallas.py): about P2/16, a
+    multiple of 1,024, within [4,096, 65,536]."""
+    return min(max(P2 // 16 // 1024 * 1024, 4096), 65536)
+
+
+def _rank_formula(mu, sqrt, ceil):
+    """The sample rank whose distance bounds a quantile with ``mu``
+    expected sample points below it: one expression for the Python ranks
+    and the per-cloud tensor ranks, so the two never drift apart."""
+    return ceil(mu + _BOUND_MARGIN_SIGMA * sqrt(mu) + _BOUND_MARGIN_ABS)
+
+
+def _bound_m(mu: float) -> int:
+    return int(_rank_formula(mu, math.sqrt, math.ceil))
+
+
+def _rounds(K: int, P2: int) -> int:
+    """Kernel rounds of one call: one for K <= 64, else ceil(min(K, P2) /
+    64) chained 64-key rounds (later rounds cannot admit anything)."""
+    return 1 if K <= ROUND_K else max(1, -(-min(K, P2) // ROUND_K))
+
+
+def _quantiles(K: int, P2: int) -> list[int]:
+    """Each round's closing quantile: the global rank its last slot holds."""
+    if K <= ROUND_K:
+        return [K]
+    return [min((r + 1) * ROUND_K, K) for r in range(_rounds(K, P2))]
+
+
+def _max_rank(kqs, P2: int, s: int) -> int:
+    """The sample rank of the deepest quantile for a cloud of P2 // 2
+    points, the shortest cloud whose bounds are used."""
+    return _bound_m(s * kqs[-1] / max(P2 // 2, 1))
+
+
+def seed_gate(K: int, P2: int, s: int, on_cuda: bool, sample_bound=None) -> bool:
+    """Whether a call seeds its rounds from bounds on an ``s``-point sample.
+    A sample applies for K > 1, ``P2 >= 4 * s`` and a deepest rank within
+    ``min(s, 512)``. ``None`` takes the auto gate, off on CPU tensors: on
+    for K > 64 and, for one round, in ``SEED_SINGLE_ROUND_BUCKETS``;
+    ``True`` where no sample applies logs a warning and runs unseeded, as
+    the JAX package does."""
+    applies = (K > 1 and s >= 1 and P2 >= 4 * s
+               and _max_rank(_quantiles(K, P2), P2, s) <= min(s, _MAX_RANK))
+    if sample_bound is None:
+        return (on_cuda and applies
+                and (K > ROUND_K or _bucket(K) in SEED_SINGLE_ROUND_BUCKETS))
+    if sample_bound and not applies:
+        logger.warning(
+            "sample_bound=True ignored: K=%d, P2=%d needs K > 1, P2 >= 4*s=%d and "
+            "a deepest sample rank within min(s, %d): running unseeded",
+            K, P2, 4 * s, _MAX_RANK)
+        return False
+    return bool(sample_bound)
+
+
+def bound_ranks(lengths2, kqs, s: int, P2: int):
+    """(m_max, m_r, usable) of ``kth_bounds``: the deepest rank for the
+    shortest usable cloud (an int), each cloud's rank for each quantile
+    ((N, R) int32, float32 arithmetic as in knn_pallas.py) and whether that
+    bound is used ((N, R) bool: within m_max, cloud at least P2 // 2)."""
+    l2f = torch.clamp_min(lengths2.to(torch.float32), 1.0)[:, None]
+    # s * kq rounded in float32, as knn_pallas.py computes it.
+    num = torch.stack([torch.full_like(l2f[:, 0], float(s)) * float(kq) for kq in kqs],
+                      dim=1)
+    m_r = _rank_formula(torch.div(num, l2f), torch.sqrt, torch.ceil).to(torch.int32)
+    m_max = _max_rank(kqs, P2, s)
+    usable = (m_r <= m_max) & (lengths2[:, None] >= max(P2 // 2, 1))
+    return m_max, m_r, usable
+
+
+def _unseeded_topk(p1, p2, lengths2, K, norm, rows=None):
+    """Top-K values and indices of the queries in the order ``rows`` (int64,
+    or None: row order): the kernel on CUDA tensors, the plain twin on
+    others."""
+    if p1.is_cuda:
+        N, P1, D = p1.shape
+        plan = _card_plan(p1.device.index, N, P1, p2.shape[1], D, min(K, ROUND_K), norm)
+        return _launch_rounds(p1, p2, lengths2, K, norm, plan,
+                              None if rows is None else rows.to(torch.int32))
+    return knn_topk_plain(p1 if rows is None else _gather_rows(p1, rows), p2,
+                          lengths2, K, norm)
+
+
+def kth_bounds(p1, p2, lengths2, kqs, norm: int, s: int, rows=None):
+    """Per-query upper bounds on each quantile ``kqs[r]`` of the distances
+    to the first ``lengths2`` points of p2 (``knn_pallas.py``
+    ``_bigk_round_bounds``): one KNN of the queries (in the order ``rows``,
+    if given) over s points taken at a stride from each cloud gives, for
+    quantile r, the m_r-th smallest sample distance (``bound_ranks``). A
+    list of (N, P1) float32, +inf where unused; None when the deepest rank
+    exceeds ``min(s, 512)``. The bounds are the kernel's own distances, so
+    a too-tight one is only ever a miss that the repair catches."""
+    N, P1, _ = p1.shape
+    P2 = p2.shape[1]
+    m_max = _max_rank(kqs, P2, s)
+    if m_max > min(s, _MAX_RANK):
+        return None
+    # The sample pass is launched first: the ranks' arithmetic below is
+    # enqueued while it runs.
+    stride = lengths2.to(torch.float32)[:, None] / float(s)
+    pos = torch.arange(s, dtype=torch.float32, device=p2.device)[None, :] * stride
+    sidx = torch.minimum(pos.to(torch.int64), torch.clamp_min(lengths2[:, None] - 1, 0))
+    sample = _gather_rows(p2, sidx).contiguous()
+    m_pad = -(-m_max // 8) * 8
+    d_s, _ = _unseeded_topk(p1, sample, torch.clamp_max(lengths2, s), min(m_pad, s),
+                            norm, rows)
+    _, m_r, usable = bound_ranks(lengths2, kqs, s, P2)
+    at = (torch.clamp(m_r, 1, m_max) - 1).to(torch.int64)
+    taus = torch.gather(d_s, 2, at[:, None, :].expand(N, P1, len(kqs)))
+    taus = torch.where(usable[:, None, :], taus, _INF)
+    return [taus[..., r].contiguous() for r in range(len(kqs))]
+
+
 class CandidateOrder(NamedTuple):
     """p2 in Morton order on the joint box of p1 and p2's valid rows, rows
     past lengths2 last: ``points`` (N, P2, D), ``ids`` (N, P2) int32 each
@@ -428,13 +641,76 @@ def _with_sorting(p1, p2, lengths2, sort_queries, sort_candidates, topk):
     return topk(p1, p2 if order is None else order.points, order, rows)
 
 
-def _launch_rounds(p1, p2, lengths2, K, norm, plan: Plan, rows=None,
-                   cand_ids=None, starts=None, counts=None):
-    """The kernel's launches for one call: one round, or ceil(K/64) chained
-    64-key rounds behind each query's (value, index) lower bound. ``rows``
-    (int32): the order the kernel takes the queries in, and its outputs'
-    row order; ``cand_ids`` and ``starts`` (int32): p2's original indices
-    and each block's first tile."""
+def _chain(launch, K, P2, seeds=None, gate=None, out=None):
+    """The rounds of one call as per-round lists (values, indices): one
+    round of K keys, or ``_rounds`` chained 64-key rounds, round r admitting
+    only candidates above round r-1's last (value, index). ``launch(k, lb,
+    seed, gate, out)`` runs one round; ``seeds``: one (N, P1) seed a round,
+    or None; ``gate`` and ``out``: the repair rerun's gate word and the
+    per-round outputs it overwrites."""
+    rounds = _rounds(K, P2)
+    k = K if K <= ROUND_K else ROUND_K
+    ds, idxs, lb = [], [], None
+    for r in range(rounds):
+        d, i = launch(k, lb, None if seeds is None else seeds[r], gate,
+                      None if out is None else (out[0][r], out[1][r]))
+        ds.append(d)
+        idxs.append(i)
+        if r + 1 < rounds:
+            lb = (d[..., -1].contiguous(), i[..., -1].contiguous())
+    return ds, idxs
+
+
+def _join(ds, idxs, K):
+    """One call's (N, P1, K) values and indices from its rounds; slots past
+    the last round are (inf, 0)."""
+    if len(ds) == 1 and ds[0].shape[2] == K:
+        return ds[0], idxs[0]
+    d, i = torch.cat(ds, dim=2), torch.cat(idxs, dim=2)
+    if d.shape[2] < K:
+        d = torch.nn.functional.pad(d, (0, K - d.shape[2]), value=_INF)
+        i = torch.nn.functional.pad(i, (0, K - i.shape[2]))
+    return d[..., :K].contiguous(), i[..., :K].contiguous()
+
+
+def repair_gate(idxs, lengths2, K):
+    """One int32 on the rounds' device: 1 if a ``SENT`` is left in a slot
+    k < min(K, lengths2) of any round (a bound was too tight), else 0.
+    ``idxs``: the rounds' indices, round r holding slots 64r on (a joined
+    output split into 64-slot pieces will do). A round's ``SENT`` slots are
+    a suffix of each row (everything it admits sorts before its seed
+    entries), so each round is read at its last slot below min(K,
+    lengths2) alone. Computed on the device: no host sync."""
+    last = torch.clamp_max(lengths2, K) - 1
+    fails = []
+    for r, i in enumerate(idxs):
+        N, P1, k = i.shape
+        at = last - r * ROUND_K
+        slot = torch.clamp(at, 0, k - 1)[:, None, None].expand(N, P1, 1)
+        fails.append(((torch.gather(i, 2, slot) == SENT)
+                      & (at >= 0)[:, None, None]).any())
+    return torch.stack(fails).any().to(torch.int32).reshape(1)
+
+
+def _seeded(launch, K, P2, lengths2, seeds):
+    """The seeded rounds and their repair (``knn_pallas.py``
+    ``_repair_sentinels``): where ``repair_gate`` is 1 every round reruns
+    unseeded into the same outputs, which leaves the unseeded result; then
+    every ``SENT`` slot left (past lengths2 or past the last round's K) is
+    set to (inf, 0), as unseeded."""
+    ds, idxs = _chain(launch, K, P2, seeds)
+    _chain(launch, K, P2, None, repair_gate(idxs, lengths2, K), (ds, idxs))
+    d, i = _join(ds, idxs, K)
+    sent = i == SENT
+    return torch.where(sent, _INF, d), torch.where(sent, 0, i)
+
+
+def _launcher(p1, p2, lengths2, norm, plan: Plan, rows=None, cand_ids=None,
+              starts=None, counts=None):
+    """``launch(k, lb, seed, gate, out)`` for ``_chain``: one launch of
+    ``csrc/knn.cu``. ``rows`` (int32): the order the kernel takes the
+    queries in, and its outputs' row order; ``cand_ids`` and ``starts``
+    (int32): p2's original indices and each block's first tile."""
     N, P1, D = p1.shape
     P2 = p2.shape[1]
     dev = p1.device
@@ -444,39 +720,88 @@ def _launch_rounds(p1, p2, lengths2, K, norm, plan: Plan, rows=None,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    def launch(k, lb_d, lb_i):
-        d = torch.empty((N, P1, k), dtype=torch.float32, device=dev)
-        i = torch.empty((N, P1, k), dtype=torch.int64, device=dev)
+    def launch(k, lb, seed, gate, out):
+        if out is None:
+            out = (torch.empty((N, P1, k), dtype=torch.float32, device=dev),
+                   torch.empty((N, P1, k), dtype=torch.int64, device=dev))
+        lb_d, lb_i = (None, None) if lb is None else lb
         _build.check(
             fn(p1.data_ptr(), p2.data_ptr(), lengths2.data_ptr(), ptr(lb_d),
                ptr(lb_i), ptr(rows), ptr(cand_ids), ptr(starts), ptr(counts),
-               N, P1, P2, D, k, norm, *plan, d.data_ptr(), i.data_ptr(), stream),
+               ptr(seed), ptr(gate), N, P1, P2, D, k, norm, *plan,
+               out[0].data_ptr(), out[1].data_ptr(), stream),
             "knn_topk",
         )
         knn_topk_cuda.launches += 1
-        return d, i
+        return out
 
-    if K <= ROUND_K:
-        return launch(K, None, None)
-    # Rounds past ceil(min(K, P2) / 64) cannot admit anything.
-    rounds = max(1, -(-min(K, P2) // ROUND_K))
-    ds, idxs = [], []
-    lb_d = lb_i = None
-    for _ in range(rounds):
-        d, i = launch(ROUND_K, lb_d, lb_i)
-        ds.append(d)
-        idxs.append(i)
-        lb_d, lb_i = d[..., -1].contiguous(), i[..., -1].contiguous()
-    d, i = torch.cat(ds, dim=2), torch.cat(idxs, dim=2)
-    if d.shape[2] < K:
-        d = torch.nn.functional.pad(d, (0, K - d.shape[2]), value=_INF)
-        i = torch.nn.functional.pad(i, (0, K - i.shape[2]))
-    return d[..., :K].contiguous(), i[..., :K].contiguous()
+    return launch
+
+
+def _launch_rounds(p1, p2, lengths2, K, norm, plan: Plan, rows=None,
+                   cand_ids=None, starts=None, counts=None, seeds=None):
+    """The kernel's launches for one call, joined: one round, or ceil(K/64)
+    chained 64-key rounds behind each query's (value, index) lower bound;
+    ``seeds``: one (N, P1) seed a round (``seed_of``), in the kernel's
+    query order, or None. See ``_launcher``."""
+    launch = _launcher(p1, p2, lengths2, norm, plan, rows, cand_ids, starts, counts)
+    return _join(*_chain(launch, K, p2.shape[1], seeds), K)
+
+
+def _plain_launcher(p1, p2, lengths2, norm, ids=None):
+    """``launch`` for ``_chain`` on the plain twin, queries in their given
+    order; a gate is read on the host (these are not CUDA tensors)."""
+    def launch(k, lb, seed, gate, out):
+        if gate is not None and not bool(gate):
+            return out
+        d, i = _plain_round(p1, p2, lengths2, k, norm, ids, lb, seed)
+        if out is None:
+            return d, i
+        out[0].copy_(d)
+        out[1].copy_(i)
+        return out
+
+    return launch
+
+
+def _topk(p1, p2, lengths2, K, norm, make_launch, sort_queries, sort_candidates,
+          s=None, ub=None):
+    """One call on either device: the sorts asked for, then the rounds of
+    ``make_launch(q, ref, order, rows)``, seeded from bounds on an
+    ``s``-point sample (with the repair) if ``s`` is given, or from the
+    inclusive bound ``ub`` (raw, one round), else unseeded."""
+    P2 = p2.shape[1]
+
+    def topk(q, ref, order, rows):
+        launch = make_launch(q, ref, order, rows)
+        if ub is not None:
+            u = ub if rows is None else torch.gather(ub, 1, rows)
+            d, i = _join(*_chain(launch, K, P2, [seed_of(u)]), K)
+        elif s is not None:
+            taus = kth_bounds(q, ref, lengths2, _quantiles(K, P2), norm, s, rows)
+            d, i = _seeded(launch, K, P2, lengths2, [seed_of(t) for t in taus])
+        else:
+            d, i = _join(*_chain(launch, K, P2), K)
+        return (d, i) if rows is None else (_unpermute(d, rows), _unpermute(i, rows))
+
+    return _with_sorting(p1, p2, lengths2, sort_queries, sort_candidates, topk)
+
+
+def _check_ub(ub, p1, K, sample_bound):
+    if ub is None:
+        return
+    if sample_bound:
+        raise ValueError("knn_topk: give ub= or sample_bound=True, not both")
+    if not 1 < K <= ROUND_K:
+        raise ValueError(f"knn_topk: ub= seeds one round, 1 < K <= {ROUND_K} (K={K})")
+    if (ub.shape != p1.shape[:2] or ub.dtype != torch.float32
+            or ub.device != p1.device):
+        raise ValueError("knn_topk: ub must be (N, P1) float32 on p1's device")
 
 
 def knn_topk_cuda(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
-                  sort_candidates=None, instrument: bool = False,
-                  _plan: Plan | None = None):
+                  sort_candidates=None, sample_bound=None, sample_s=None, ub=None,
+                  instrument: bool = False, _plan: Plan | None = None):
     """Launch ``csrc/knn.cu`` on CUDA tensors: float32 points, int64
     lengths, all contiguous and on one device. K > 64 runs ceil(K/64)
     chained rounds. Returns (dists (N, P1, K) float32, idx (N, P1, K) int64),
@@ -487,9 +812,15 @@ def knn_topk_cuda(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
     ``sort_queries`` / ``sort_candidates``: Morton-sort the queries / the
     candidates (None: ``sort_gates``). Sorted candidates need the carried
     instances (D = 3, K >= 5; at norm 1 not 17 <= K <= 32), counters the counting ones (D = 3, norm 2,
-    5 <= K <= 64): asked for elsewhere, they raise. ``_plan`` forces a
+    5 <= K <= 64): asked for elsewhere, they raise. ``sample_bound``:
+    seed from bounds on a ``sample_s``-point sample (default
+    ``_default_sample_s``; None: ``seed_gate``), with the repair, no host
+    sync; not with ``instrument``. ``ub`` (N, P1) float32: seed one round
+    (1 < K <= 64) at ``seed_of(ub)`` and return the raw state, ``SENT``
+    slots included. ``_plan`` forces a
     launch plan (``tune_knn.py``); by default ``_launch_plan`` picks it."""
     _check_inputs(p1, p2, lengths2, K, norm)
+    _check_ub(ub, p1, K, sample_bound)
     N, P1, D = p1.shape
     P2 = p2.shape[1]
     sort_queries, sort_candidates = sort_gates(N * P1 * P2, K, True, sort_queries,
@@ -501,6 +832,9 @@ def knn_topk_cuda(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
     if instrument and not _counted_instance(D, K, norm):
         raise ValueError(f"knn_topk_cuda: no counting kernel for D={D}, K={K}, "
                          f"norm={norm} (D = 3, norm 2, 5 <= K <= 64 only)")
+    if instrument and sample_bound:
+        raise ValueError("knn_topk_cuda: instrument=True counts one launch: give "
+                         "ub= instead of sample_bound=True")
     dev = p1.device
     for t, dtype in ((p1, torch.float32), (p2, torch.float32),
                      (lengths2, torch.int64)):
@@ -508,56 +842,54 @@ def knn_topk_cuda(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
             raise ValueError("knn_topk_cuda needs every input on one CUDA device")
         if t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"knn_topk_cuda needs contiguous {dtype} inputs")
+    s = sample_s or _default_sample_s(P2)
+    seeded = ub is None and not instrument and seed_gate(K, P2, s, True, sample_bound)
     plan = _plan or _card_plan(dev.index, N, P1, P2, D, min(K, ROUND_K), norm,
                                sort_candidates)
     block = plan.queries * plan.threads
     counts = (torch.zeros((N, -(-P1 // block), len(COUNTERS)), dtype=torch.int64,
                           device=dev) if instrument else None)
 
-    def topk(q, ref, order, rows):
+    def make_launch(q, ref, order, rows):
         rows32 = None if rows is None else rows.to(torch.int32)
         if order is None:
-            d, i = _launch_rounds(q, ref, lengths2, K, norm, plan, rows32,
-                                  counts=counts)
-        else:
-            d, i = _launch_rounds(q, ref, lengths2, K, norm, plan, rows32,
-                                  order.ids, scan_starts(q, order, block, plan.tile,
-                                                         rows), counts)
-        return (d, i) if rows is None else (_unpermute(d, rows), _unpermute(i, rows))
+            return _launcher(q, ref, lengths2, norm, plan, rows32, counts=counts)
+        return _launcher(q, ref, lengths2, norm, plan, rows32, order.ids,
+                         scan_starts(q, order, block, plan.tile, rows), counts)
 
-    d, i = _with_sorting(p1, p2, lengths2, sort_queries, sort_candidates, topk)
+    d, i = _topk(p1, p2, lengths2, K, norm, make_launch, sort_queries,
+                 sort_candidates, s if seeded else None, ub)
     return (d, i, counts) if instrument else (d, i)
 
 
 knn_topk_cuda.launches = 0
 
 
-def _plain_sorted(p1, p2, lengths2, K, norm, order, rows):
-    """The plain twin on sorted inputs: the queries taken in the order
-    ``rows`` and their outputs put back in row order."""
-    ids = None if order is None else order.ids
-    if rows is None:
-        return knn_topk_plain(p1, p2, lengths2, K, norm, ids)
-    d, i = knn_topk_plain(_gather_rows(p1, rows), p2, lengths2, K, norm, ids)
-    return _unpermute(d, rows), _unpermute(i, rows)
-
-
 def knn_topk(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
-             sort_candidates=None):
+             sort_candidates=None, sample_bound=None, sample_s=None, ub=None):
     """The K nearest of the first ``lengths2[n]`` points of ``p2`` for every
     query in ``p1``: the CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors, each with the Morton sorts asked for (None: the auto
-    gate, which is off on the CPU)."""
+    CPU tensors, each with the Morton sorts and the seeding asked for
+    (None: the auto gates, which are off on the CPU). See
+    ``knn_topk_cuda``."""
     if p1.is_cuda:
         return knn_topk_cuda(p1, p2, lengths2, K, norm, sort_queries=sort_queries,
-                             sort_candidates=sort_candidates)
+                             sort_candidates=sort_candidates,
+                             sample_bound=sample_bound, sample_s=sample_s, ub=ub)
     if p1.device.type == "cpu":
         _check_inputs(p1, p2, lengths2, K, norm)
+        _check_ub(ub, p1, K, sample_bound)
         N, P1, _ = p1.shape
-        sq, sc = sort_gates(N * P1 * p2.shape[1], K, False, sort_queries,
-                            sort_candidates)
-        return _with_sorting(
-            p1, p2, lengths2, sq, sc,
-            lambda q, ref, order, rows: _plain_sorted(q, ref, lengths2, K, norm,
-                                                      order, rows))
+        P2 = p2.shape[1]
+        sq, sc = sort_gates(N * P1 * P2, K, False, sort_queries, sort_candidates)
+        s = sample_s or _default_sample_s(P2)
+        seeded = ub is None and seed_gate(K, P2, s, False, sample_bound)
+
+        def make_launch(q, ref, order, rows):
+            return _plain_launcher(q if rows is None else _gather_rows(q, rows), ref,
+                                   lengths2, norm,
+                                   None if order is None else order.ids.to(torch.int64))
+
+        return _topk(p1, p2, lengths2, K, norm, make_launch, sq, sc,
+                     s if seeded else None, ub)
     raise ValueError(f"knn_topk: no kernel for device {p1.device}")

@@ -222,7 +222,8 @@ def _chamfer_distance_single_direction(
             cham_features_x[name] = fd
 
     if point_reduction == "max":
-        cham_x = cham_x.max(dim=1).values
+        # amax, as jnp.max: a tied maximum's gradient is split evenly.
+        cham_x = cham_x.amax(dim=1)
     elif point_reduction is not None:
         cham_x = cham_x.sum(dim=1)
         if return_features:

@@ -29,7 +29,18 @@ included, and names what the gate picks. It prints one JSON line per
 shape, a table of the sort columns, the gate table, then the card's name
 and power limit. A knn
 module without launch plans or sorts is timed under its one launch,
-unsorted. Exits 1 without a CUDA device.
+unsorted.
+
+Last, the seeding table (``--seeding`` runs it alone): kth-bound seeding
+(``knn_topk(sample_bound=True)``) against unseeded at the north star and
+16 x 10,000 for K in {16, 32, 64, 100} and at config 4 (1M x 1M) for
+K=16, the queries sorted where the gate sorts them: the call with its
+sample pass and repair, the bounds alone (``kth_bounds``), the sample's
+KNN alone, the seeded and unseeded rounds alone, each sample size in
+``SAMPLE_SIZES`` of the shape, the candidates sorted too, and the
+counters' insertions a query with and without the seed. Every seeded
+call is held bit-equal to the unseeded one. Exits 1 without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -53,6 +64,12 @@ BATCH = 20
 # star (1e10), where the query sort's gate (kernels/knn.py sort_gates) is
 # set: one large cloud and many mid-size ones on each side of 2^32 pairs.
 GATE_SHAPES = ((1, 50_000), (32, 10_000), (1, 70_000), (64, 10_000))
+# Seeding table: (label, clouds, points a cloud, Ks, sample sizes; the first
+# is the default where P2 >= 4 * 4,096, else the largest power of two with
+# P2 >= 4 * s).
+SEED_SHAPES = (("north star", 1, 100_000, (16, 32, 64, 100), (6144, 3072, 1536)),
+               ("16 x 10,000", 16, 10_000, (16, 32, 64, 100), (2048, 1024, 512)),
+               ("config 4", 1, 1_000_000, (16,), (62464, 15616)))
 
 
 def _ms(fn, reps=5):
@@ -169,6 +186,82 @@ def _gate_table(kk, rng, dev):
     return lines
 
 
+def _seed_row(kk, ss, p1, p2, lengths2, K, sizes):
+    """The seeding columns at one shape and K (see the module docstring)."""
+    N, P1, D = p1.shape
+    P2 = p2.shape[1]
+    sq = kk.sort_gates(N * P1 * P2, K, True)[0]
+    rows = ss.morton_order(p1) if sq else None
+    rows32 = None if rows is None else rows.int()
+    plan = kk.card_plans(p1, p2, K, 2)[0]
+    base = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sample_bound=False)
+    row = {"queries sorted": sq, "unseeded_ms": _ms(
+        lambda: kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sample_bound=False)),
+        "rounds_alone_ms": {"unseeded": _ms(
+            lambda: kk._launch_rounds(p1, p2, lengths2, K, 2, plan, rows32))}}
+    kqs = kk._quantiles(K, P2)
+    for s in sizes:
+        kw = dict(sample_bound=True, sample_s=s)
+        out = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, **kw)
+        if not (torch.equal(out[0], base[0]) and torch.equal(out[1], base[1])):
+            raise RuntimeError(f"tune_knn: seeded K={K} s={s} differs from unseeded")
+        taus = kk.kth_bounds(p1, p2, lengths2, kqs, 2, s, rows)
+        seeds = [kk.seed_of(t) for t in taus]
+        m_max = kk.bound_ranks(lengths2, kqs, s, P2)[0]
+        sidx = (torch.arange(s, device=p2.device) * P2 // s)[None].expand(N, s)
+        sample = kk._gather_rows(p2, sidx).contiguous()
+        len_s = torch.clamp_max(lengths2, s)
+        m = min(-(-m_max // 8) * 8, s)
+        splan = kk.card_plans(p1, sample, m, 2)[0]
+        row[f"s={s}"] = {
+            "seeded_ms": _ms(lambda: kk.knn_topk_cuda(p1, p2, lengths2, K, 2, **kw)),
+            "bounds_ms": _ms(lambda: kk.kth_bounds(p1, p2, lengths2, kqs, 2, s, rows)),
+            "sample_knn_ms": _ms(lambda: kk._launch_rounds(p1, sample, len_s, m, 2, splan,
+                                                           rows32)),
+            "sample_K": m, "sample_plan": kk.plan_name(splan),
+            "seeded_rounds_alone_ms": _ms(lambda: kk._launch_rounds(
+                p1, p2, lengths2, K, 2, plan, rows32, seeds=seeds)),
+            "repair": int(kk.repair_gate(kk._launch_rounds(
+                p1, p2, lengths2, K, 2, plan, rows32, seeds=seeds)[1].split(
+                    kk.ROUND_K, dim=2), lengths2, K)),
+        }
+    s = sizes[0]
+    if kk._carried_instance(D, K, 2) and N * P1 * P2 <= 10**10:
+        kw = dict(sample_bound=True, sample_s=s, sort_queries=True, sort_candidates=True)
+        out = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, **kw)
+        if not (torch.equal(out[0], base[0]) and torch.equal(out[1], base[1])):
+            raise RuntimeError(f"tune_knn: seeded both-sorted K={K} differs")
+        row["both_sorted_ms"] = {
+            "seeded": _ms(lambda: kk.knn_topk_cuda(p1, p2, lengths2, K, 2, **kw)),
+            "unseeded": _ms(lambda: kk.knn_topk_cuda(
+                p1, p2, lengths2, K, 2, sample_bound=False, sort_queries=True,
+                sort_candidates=True))}
+    if kk._counted_instance(D, K, 2):
+        tau = kk.kth_bounds(p1, p2, lengths2, [K], 2, s)[0]
+        row["insertions_a_query"] = {
+            name: kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sort_queries=sq,
+                                   instrument=True, **kw)[2][..., 3].sum().item() / (N * P1)
+            for name, kw in (("unseeded", {}), ("seeded", {"ub": tau}))}
+    return row
+
+
+def _seed_table(kk, rng, dev):
+    """Lines of the seeding table, one JSON object per shape and K."""
+    from .kernels import spatial_sort as ss
+
+    lines = []
+    for label, N, P, Ks, sizes in SEED_SHAPES:
+        p1, p2 = (torch.randn((N, P, 3), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(s))
+                  for s in rng.integers(0, 2**31, size=2).tolist())
+        lengths2 = torch.full((N,), P, dtype=torch.int64, device=dev)
+        for K in Ks:
+            row = {"shape": label, "K": K, **_seed_row(kk, ss, p1, p2, lengths2, K, sizes)}
+            lines.append(json.dumps(row))
+            print(lines[-1], flush=True)
+    return lines
+
+
 def _table_line(label, K, r):
     ms = " / ".join(f"{r['sorted_ms'][n]:.3f} ({r['kernel_ms'][n]:.3f})"
                     if n in r["sorted_ms"] else "-" for n in SORTS)
@@ -182,6 +275,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also append the lines here")
+    ap.add_argument("--seeding", action="store_true",
+                    help="run the seeding table alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tune_knn: no CUDA device", file=sys.stderr)
@@ -194,7 +289,7 @@ def main() -> int:
     card_plans = getattr(kk, "card_plans", None)
     has_sorts = hasattr(kk, "candidate_order")
     lines, table = [], []
-    for label, p1, p2, lengths2 in _shapes(rng, dev):
+    for label, p1, p2, lengths2 in ([] if args.seeding else _shapes(rng, dev)):
         N, P1, _ = p1.shape
         sub = min(P1, -(-CHECK_QUERIES // N))
         row = {"shape": label, "N": N, "P1": P1, "P2": p2.shape[1], "D": 3, "K": {}}
@@ -233,6 +328,9 @@ def main() -> int:
                 "included) | ratio | the gate's pick")
         print(head)
         table += [head, *_gate_table(kk, rng, dev)]
+    if hasattr(kk, "kth_bounds"):
+        print("seeding table: ms, queries sorted where the gate sorts them")
+        table += ["seeding table", *_seed_table(kk, rng, dev)]
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,

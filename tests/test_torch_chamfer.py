@@ -97,6 +97,53 @@ def test_chamfer_gradients_match_jax(norm, single_directional):
     np.testing.assert_allclose(ty.grad.numpy(), np.asarray(gy), rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("norm", [1, 2])
+@pytest.mark.parametrize("single_directional", [False, True])
+def test_chamfer_max_gradients_match_jax(norm, single_directional):
+    """The ``point_reduction="max"`` rows of the gradient check: grid
+    points at norm 1, where maxima tie."""
+    x, y, l1, l2 = _clouds(2 + norm, grid=norm == 1)
+    kw = dict(norm=norm, single_directional=single_directional,
+              point_reduction="max")
+
+    def jloss(a, b):
+        return jax_chamfer(a, b, l1, l2, impl="xla", **kw)[0]
+
+    gx, gy = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(y))
+    tx, ty = _t(x, requires_grad=True), _t(y, requires_grad=True)
+    loss, _ = ppt.chamfer_distance(tx, ty, _t(l1), _t(l2), **kw)
+    loss.backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(ty.grad.numpy(), np.asarray(gy), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("single_directional", [False, True])
+def test_chamfer_tied_max_gradient_matches_jax(single_directional):
+    """Four points at x = 0, 1, 3, 4 against 0.5 and 3.5, norm 1: every
+    point's nearest distance is 0.5, so the maximum ties four ways (two in
+    the other direction) and its gradient is split evenly among them, as
+    ``jnp.max`` splits it: d/dx [-0.25, 0.25, -0.25, 0.25] one-way."""
+    x = np.zeros((1, 4, 3), np.float32)
+    y = np.zeros((1, 2, 3), np.float32)
+    x[0, :, 0] = [0, 1, 3, 4]
+    y[0, :, 0] = [0.5, 3.5]
+    kw = dict(norm=1, point_reduction="max", single_directional=single_directional)
+
+    def jloss(a, b):
+        return jax_chamfer(a, b, impl="xla", **kw)[0]
+
+    gx, gy = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(y))
+    tx, ty = _t(x, requires_grad=True), _t(y, requires_grad=True)
+    loss, _ = ppt.chamfer_distance(tx, ty, **kw)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), 0.5, rtol=TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(ty.grad.numpy(), np.asarray(gy), rtol=TOL, atol=TOL)
+    want = [-0.25, 0.25, -0.25, 0.25] if single_directional else [-0.375, 0.125,
+                                                                  -0.375, 0.125]
+    np.testing.assert_allclose(tx.grad.numpy()[0, :, 0], want, rtol=TOL, atol=TOL)
+
+
 @pytest.mark.parametrize("weights", [[0.5, 2.0], [0.0, 0.0]])
 @pytest.mark.parametrize("point_reduction", ["mean", None])
 def test_chamfer_weights_match_jax(weights, point_reduction):

@@ -96,8 +96,29 @@ each with the queries, the candidates and both sorted, all without a host
 sync; bounds of -1 forcing the repair (its gate word 1, four launches, the
 result exact); a raw ``ub=`` round bit-equal to the plain twin, sentinel
 slots included; the counters' insertions with and without a seed at K=16
-and 64; and seeded against unseeded times. The line
-before the last is one JSON object with a record per kernel; the last line is
+and 64; and seeded against unseeded times.
+
+Phase 6 drives the ring layer (``pytorch3d_pointops_tpu_torch.parallel``)
+over a ``("sp",)`` mesh of four shards on ``cuda:0`` as a main path with
+its own launch counts: ``ring_chamfer_distance`` at config 5's cloud width
+(16 clouds of 100,000 points, ragged 90,000-100,000, normals and colors,
+mean/mean, five SGD steps; cut from 256 clouds on two or more hosts for one
+card and the script's run time), then ``ring_knn_points`` at the north
+star, K=16 fwd+bwd and K=100 fwd. It requires 4 x 4 hops of the chamfer NN
+kernel a forward and of the KNN kernel at K=16, and the backward's rows
+scatters. Each shape is held against the single-card op on the same inputs
+(losses within rel 1e-5, both NN index sets equal, KNN distances
+bit-equal, gradients within 1e-5 of their largest entry, two ring
+backwards bit-equal) and against the same ring call through the plain
+twins (indices equal; distances, losses and gradients within 1e-5; the
+single-card chamfer NN against its plain twin too). So are the edges
+(lengths that leave whole shards empty: 0, 1 and P - 1; shards of 10
+points at K=16; both kernels' raw (inf, 0) output on such shards, which is
+also held against the plain twins) and config 3 over a 2 x 2 ``("dp",
+"sp")`` mesh. It prints the ring's wall time beside the single card's for
+each shape, and one hop's kernel time at the shard shape. The line
+before the last is one JSON object with a record per kernel (the three
+kernels the ring runs also carry ``ring_launches``); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line. Without CUDA it exits 1 at once.
 """
@@ -642,6 +663,316 @@ def phase5(cases, plain_path, note_err):
           f"opted in): {json.dumps(ms)}")
 
 
+
+
+def phase6(T, rng, plain_path):
+    """The ring layer (``parallel/``) on the card, four shards of one
+    ``("sp",)`` mesh on ``cuda:0`` (and a 2 x 2 ``("dp", "sp")`` mesh): its
+    main path with its own launch counts (config 5's ring chamfer, five SGD
+    steps; the north-star ring KNN at K=16 fwd+bwd and K=100 fwd), each
+    shape against the single-card op (losses within rel 1e-5, indices
+    equal, KNN distances bit-equal, gradients within 1e-5 of their largest
+    entry, two backward runs bit-equal), the same ring calls again through
+    the plain twins (``plain_path`` swaps the kernels' module attributes,
+    which the ring looks up at every hop), the edges (shards past a cloud's
+    length, shards smaller than K), and the ring's time beside the single
+    card's. Returns each kernel's launches on the ring's main path."""
+    import pytorch3d_pointops_tpu_torch as ppt
+    from pytorch3d_pointops_tpu_torch.kernels import chamfer as kc
+    from pytorch3d_pointops_tpu_torch.kernels import knn as kk
+    from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
+    from pytorch3d_pointops_tpu_torch.ops.chamfer import _nn_bidirectional
+    from pytorch3d_pointops_tpu_torch.parallel import (
+        make_mesh, ring_chamfer_distance, ring_knn_points)
+    from pytorch3d_pointops_tpu_torch.parallel import ring as pr
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh((4,), ("sp",), devices=[dev] * 4)
+    require(all(d.type == "cuda" for d in mesh.devices.flat), "ring mesh not on the card")
+
+    def unit(a):
+        return (a / np.linalg.norm(a, axis=-1, keepdims=True)).astype(np.float32)
+
+    def chamfer_case(N, P, lo):
+        """Two ragged batches of N clouds of up to P points (lengths in
+        [lo, P]) with normals and colors, on the card."""
+        lens = [T(rng.integers(lo, P + 1, size=N), torch.int64) for _ in range(2)]
+        pts = [T((s * rng.normal(size=(N, P, 3))).astype(np.float32)) for s in (1.5, 1.0)]
+        feats = [{"normals": T(unit(rng.normal(size=(N, P, 3)))),
+                  "colors": T(rng.uniform(size=(N, P, 3)).astype(np.float32))}
+                 for _ in range(2)]
+        return pts, lens, feats
+
+    names = ["normals", "colors"]
+
+    def cham_step(p, case, ring_mesh=None, **ring_kw):
+        """One chamfer fwd+bwd, mean/mean with both feature terms: on the
+        ring when a mesh is given, else single card. Returns the losses."""
+        (_, y), (lx, ly), (fx, fy) = case
+        if ring_mesh is None:
+            loss, lf = ppt.chamfer_distance(p, y, lx, ly, fx, fy, feature_names=names)
+        else:
+            loss, lf = ring_chamfer_distance(p, y, lx, ly, fx, fy, feature_names=names,
+                                             mesh=ring_mesh, **ring_kw)
+        (loss + lf["normals"] + lf["colors"]).backward()
+        return [loss.item(), lf["normals"].item(), lf["colors"].item()]
+
+    def grad_check(what, g, ref):
+        scale = ref.abs().max().item()
+        err = (g - ref).abs().max().item()
+        require(scale > 0 and err <= TOL * scale,
+                f"{what}: gradient err {err} against largest entry {scale}")
+        return err, scale
+
+    def dist_err(what, a, b):
+        err = (a - b).abs().max().item()
+        require(err <= TOL, f"{what}: distances differ by {err}")
+        return err
+
+    def ring_vs_single_chamfer(what, p0, case, ring_mesh, **ring_kw):
+        """Ring chamfer against single card at p0: losses, both NN index
+        sets, gradients, and two ring backwards bit-equal. Then the ring
+        and the single-card NN through the plain twins against the kernels:
+        indices equal, distances, losses and gradients within TOL."""
+        grads, losses = [], []
+        for _ in range(2):
+            q = p0.detach().clone().requires_grad_(True)
+            losses.append(cham_step(q, case, ring_mesh, **ring_kw))
+            grads.append(q.grad)
+        require(torch.equal(grads[0], grads[1]), f"{what}: ring backward not bit-equal")
+        q = p0.detach().clone().requires_grad_(True)
+        single = cham_step(q, case)
+        rels = [abs(a - b) / abs(b) for a, b in zip(losses[0], single)]
+        require(all(r <= TOL for r in rels), f"{what}: losses {losses[0]} vs {single}")
+        err, scale = grad_check(what, grads[0], q.grad)
+        (_, y), (lx, ly), _ = case
+        ring = pr._Ring(ring_mesh, "sp", ring_kw.get("batch_axis"))
+        with torch.no_grad():
+            rn = pr._RingNNBidir.apply(p0, y, lx, ly, ring, 2)
+            (d1, i1), (d2, i2) = _nn_bidirectional(p0, y, lx, ly, 2)
+        require(torch.equal(rn[1], i1) and torch.equal(rn[3], i2),
+                f"{what}: nearest-neighbour indices differ from single card")
+        require(torch.equal(rn[0], d1) and torch.equal(rn[2], d2),
+                f"{what}: nearest-neighbour distances differ from single card")
+        print(f"  {what}: ring vs single card: loss rel err {max(rels):.3g}, NN indices "
+              f"equal both ways, grad max abs err {err:.3g} (largest entry "
+              f"{scale:.3g}); two ring backwards bit-equal")
+        with plain_path():
+            q = p0.detach().clone().requires_grad_(True)
+            plain = cham_step(q, case, ring_mesh, **ring_kw)
+            with torch.no_grad():
+                pn = pr._RingNNBidir.apply(p0, y, lx, ly, ring, 2)
+                (pd1, pi1), (pd2, pi2) = _nn_bidirectional(p0, y, lx, ly, 2)
+        require(torch.equal(rn[1], pn[1]) and torch.equal(rn[3], pn[3]),
+                f"{what}: ring NN indices differ from the ring through the plain twins")
+        require(torch.equal(i1, pi1) and torch.equal(i2, pi2),
+                f"{what}: single-card NN indices differ from the plain twin")
+        derr = max(dist_err(what, rn[0], pn[0]), dist_err(what, rn[2], pn[2]),
+                   dist_err(what, d1, pd1), dist_err(what, d2, pd2))
+        prels = [abs(a - b) / abs(b) for a, b in zip(losses[0], plain)]
+        require(all(r <= TOL for r in prels),
+                f"{what}: ring losses {losses[0]} vs plain twins {plain}")
+        perr, pscale = grad_check(f"{what} vs plain twins", grads[0], q.grad)
+        print(f"  {what}: ring vs ring through the plain twins: NN indices equal both "
+              f"ways (and single card's vs its plain twin), dists max abs err "
+              f"{derr:.3g}, loss rel err {max(prels):.3g}, grad max abs err {perr:.3g} "
+              f"(largest entry {pscale:.3g})")
+
+    def knn_step(q, r, l1, l2, K, ring_mesh=None, backward=True):
+        q = q.detach().requires_grad_(backward)
+        r = r.detach().requires_grad_(backward)
+        if ring_mesh is None:
+            out = ppt.knn_points(q, r, l1, l2, K=K)
+        else:
+            out = ring_knn_points(q, r, l1, l2, K=K, mesh=ring_mesh)
+        if backward:
+            (out.dists * torch.linspace(0.5, 1.5, K, device=dev)).sum().backward()
+        return out, q.grad, r.grad
+
+    def ring_vs_single_knn(what, q, r, l1, l2, K, backward=True):
+        """Ring KNN against single card: indices equal, distances
+        bit-equal, gradients within TOL of their largest entry, two ring
+        backwards bit-equal; then against the ring through the plain
+        twins: indices equal, distances and gradients within TOL."""
+        outs = [knn_step(q, r, l1, l2, K, mesh, backward) for _ in range(2 if backward else 1)]
+        ref, gq, gr = knn_step(q, r, l1, l2, K, None, backward)
+        torch.cuda.synchronize()
+        o = outs[0][0]
+        require(torch.equal(o.idx, ref.idx), f"{what}: ring idx differ from single card")
+        require(torch.equal(o.dists, ref.dists), f"{what}: ring dists not bit-equal")
+        msg = ""
+        if backward:
+            require(torch.equal(outs[0][1], outs[1][1]) and torch.equal(outs[0][2], outs[1][2]),
+                    f"{what}: ring backward not bit-equal")
+            e1 = grad_check(what, outs[0][1], gq)[0]
+            e2 = grad_check(what, outs[0][2], gr)[0]
+            msg = f", grads max abs err {e1:.3g} / {e2:.3g}, two ring backwards bit-equal"
+        print(f"  {what}: ring vs single card: idx equal, dists bit-equal{msg}")
+        with plain_path():
+            pout, pgq, pgr = knn_step(q, r, l1, l2, K, mesh, backward)
+        require(torch.equal(o.idx, pout.idx),
+                f"{what}: ring idx differ from the ring through the plain twins")
+        msg = f"dists max abs err {dist_err(what, o.dists, pout.dists):.3g}"
+        if backward:
+            e1 = grad_check(f"{what} vs plain twins", outs[0][1], pgq)[0]
+            e2 = grad_check(f"{what} vs plain twins", outs[0][2], pgr)[0]
+            msg += f", grads max abs err {e1:.3g} / {e2:.3g}"
+        print(f"  {what}: ring vs ring through the plain twins: idx equal, {msg}")
+
+    # Cut from BASELINE config 5 (256 clouds of 100k, sharded over >= 2
+    # hosts): 16 clouds, 4 shards on one card -- one card and the script's
+    # run time.
+    N5, P5 = 16, 100000
+    case5 = chamfer_case(N5, P5, 90000)
+    ns_p1 = T(rng.normal(size=(1, 100000, 3)).astype(np.float32))
+    ns_p2 = T(rng.normal(size=(1, 100000, 3)).astype(np.float32))
+    print(f"phase 6: the ring on {mesh} (config 5 cut: batch 256 -> {N5}, >= 2 hosts "
+          "-> 4 shards on one card, for one card and the script's run time)")
+
+    counters = (kk.knn_topk_cuda, kc.chamfer_nn_cuda, ks.scatter_add_rows,
+                ks.scatter_add_k1)
+    for c in counters:
+        c.launches = 0
+    # -- the ring's main path: nothing but what a user would call --
+    p = case5[0][0].clone().requires_grad_(True)
+    lr = 0.2 * N5 * P5
+    losses, step_ms, parts = [], [], {}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(cham_step(p, case5, mesh)[0])
+        with torch.no_grad():
+            p -= lr * p.grad
+        p.grad = None
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    parts["config 5 ring chamfer, 5 steps"] = {c.__name__: c.launches for c in counters}
+    t0 = time.perf_counter()
+    knn_step(ns_p1, ns_p2, None, None, 16, mesh)
+    torch.cuda.synchronize()
+    ring_k16_first = (time.perf_counter() - t0) * 1e3
+    parts["north-star ring knn K=16 fwd+bwd"] = {c.__name__: c.launches for c in counters}
+    knn_step(ns_p1, ns_p2, None, None, 100, mesh, backward=False)
+    torch.cuda.synchronize()
+    ring_launches = {c.__name__: c.launches for c in counters}
+    # -- end of the ring's main path --
+    prev = {c.__name__: 0 for c in counters}
+    for label, now in list(parts.items()) + [("north-star ring knn K=100 fwd",
+                                              ring_launches)]:
+        print(f"  ring launches, {label}: "
+              f"{json.dumps({k: now[k] - prev[k] for k in now})}")
+        prev = now
+    require(all(ring_launches[c.__name__] > 0 for c in counters[:3]),
+            f"a kernel of the ring path never ran: {ring_launches}")
+    d_cham = parts["config 5 ring chamfer, 5 steps"]
+    require(d_cham["chamfer_nn_cuda"] == 5 * 16 and d_cham["knn_topk_cuda"] == 0,
+            f"config 5 ring chamfer: {d_cham} (4 x 4 hops a forward)")
+    d_k16 = {k: parts["north-star ring knn K=16 fwd+bwd"][k] - d_cham[k] for k in d_cham}
+    require(d_k16["knn_topk_cuda"] == 16 and d_k16["scatter_add_rows"] == 16,
+            f"north-star ring K=16: {d_k16} (4 x 4 hops each way)")
+    print(f"  config 5 ring chamfer losses {losses}; step ms "
+          f"{[round(t, 3) for t in step_ms]}, median after warm-up "
+          f"{statistics.median(step_ms[1:]):.3f}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0], "ring loss did not fall")
+
+    # Each shape against single card.
+    ring_vs_single_chamfer("config 5 ring chamfer 16 x 100k", p, case5, mesh)
+    ring_vs_single_knn("north-star ring knn K=16", ns_p1, ns_p2, None, None, 16)
+    ring_vs_single_knn("north-star ring knn K=100 (fwd)", ns_p1, ns_p2, None, None, 100,
+                       backward=False)
+
+    # Edges: lengths that leave whole shards empty or nearly so, a shard
+    # smaller than K, and both kernels' raw output on such shards.
+    P = 1000
+    rq = T(rng.normal(size=(3, P, 3)).astype(np.float32))
+    rr = T(rng.normal(size=(3, P, 3)).astype(np.float32))
+    l1e = T(np.array([P, P - 1, 1]), torch.int64)
+    l2e = T(np.array([0, 1, P - 1]), torch.int64)
+    ring_vs_single_knn("ragged knn, lengths2 0 / 1 / P-1, K=16", rq, rr, l1e, l2e, 16)
+    ring_vs_single_knn("knn over shards of 10 points, K=16", rq[:, :40], rr[:, :40],
+                       None, None, 16)
+    rag = ((rq, rr), (l1e, l2e),
+           tuple({"normals": T(unit(rng.normal(size=(3, P, 3)))),
+                  "colors": T(rng.uniform(size=(3, P, 3)).astype(np.float32))}
+                 for _ in range(2)))
+    ring_vs_single_chamfer("ragged chamfer, lengths 0 / 1 / P-1", rq, rag, mesh)
+    empty = T(np.array([0, 10, 3]), torch.int64)
+    kargs = (rq[:, :250].contiguous(), rr[:, :10].contiguous(), empty, 16, 2)
+    d, i = kk.knn_topk_cuda(*kargs)
+    slot = torch.arange(16, device=dev)[None, None, :] >= empty[:, None, None]
+    require(bool(torch.isinf(d[slot.expand_as(d)]).all())
+            and int(i[slot.expand_as(i)].abs().sum()) == 0
+            and bool(torch.isfinite(d[~slot.expand_as(d)]).all()),
+            "knn_topk_cuda on a shard of 10 points (lengths2 0 / 10 / 3), K=16: slots "
+            "past lengths2 are not (inf, 0)")
+    dp, ip = kk.knn_topk_plain(*kargs)
+    require(torch.equal(i, ip) and torch.allclose(d, dp, rtol=0, atol=TOL),
+            "knn_topk_cuda on a shard of 10 points: differs from its plain twin")
+    cargs = (rq[:, :250].contiguous(), rr[:, :250].contiguous(),
+             T(np.array([250, 0, 7]), torch.int64), T(np.array([0, 250, 250]), torch.int64),
+             2)
+    d1, i1, d2, i2 = kc.chamfer_nn_cuda(*cargs)
+    require(bool(torch.isinf(d1[0]).all()) and int(i1[0].abs().sum()) == 0
+            and bool(torch.isinf(d2[1]).all()) and int(i2[1].abs().sum()) == 0,
+            "chamfer_nn_cuda: a fully masked side is not (inf, 0)")
+    pd1, pi1, pd2, pi2 = kc.chamfer_nn_plain(*cargs)
+    require(torch.equal(i1, pi1) and torch.equal(i2, pi2)
+            and torch.allclose(d1, pd1, rtol=0, atol=TOL)
+            and torch.allclose(d2, pd2, rtol=0, atol=TOL),
+            "chamfer_nn_cuda on empty and short sides: differs from its plain twin")
+    print("  raw kernels on empty and short shards: knn_topk_cuda slots past lengths2 "
+          "(inf, 0), chamfer_nn_cuda masked sides (inf, 0); both equal to their plain "
+          "twins (indices equal, distances within TOL, inf where the twin has inf)")
+
+    # The 2-D mesh at config 3's size: batch over dp, points over sp.
+    mesh2 = make_mesh((2, 2), ("dp", "sp"), devices=[dev] * 4)
+    case3 = chamfer_case(16, 10000, 9000)
+    ring_vs_single_chamfer("config 3 ring chamfer on a 2 x 2 dp x sp mesh",
+                           case3[0][0], case3, mesh2, batch_axis="dp")
+
+    # The ring's time beside the single card's, one card: the hops' copies
+    # are no-ops there, so the ring can only cost time (its merges, its
+    # extra launches, its host loop).
+    def cham_timer(case, ring_mesh=None, **kw):
+        return lambda: cham_step(case[0][0].detach().clone().requires_grad_(True), case,
+                                 ring_mesh, **kw)
+
+    times = {
+        "config 5 chamfer 16 x 100k fwd+bwd": (
+            wall_ms(cham_timer(case5, mesh), 3), wall_ms(cham_timer(case5), 3)),
+        "config 3 chamfer 16 x 10k fwd+bwd, 2 x 2 mesh": (
+            wall_ms(cham_timer(case3, mesh2, batch_axis="dp"), 5),
+            wall_ms(cham_timer(case3), 5)),
+        "north-star knn K=16 fwd+bwd": (
+            wall_ms(lambda: knn_step(ns_p1, ns_p2, None, None, 16, mesh), 5),
+            wall_ms(lambda: knn_step(ns_p1, ns_p2, None, None, 16), 5)),
+        "north-star knn K=100 fwd": (
+            wall_ms(lambda: knn_step(ns_p1, ns_p2, None, None, 100, mesh, False), 3),
+            wall_ms(lambda: knn_step(ns_p1, ns_p2, None, None, 100, None, False), 3)),
+    }
+    print(f"  ring (4 shards on one card) vs single-card wall ms, median "
+          f"(first ring K=16 call {ring_k16_first:.1f} ms); {gpu_line()}")
+    for label, (ring_ms, single_ms) in times.items():
+        print(f"    {label}: ring {ring_ms:.3f} ms, single card {single_ms:.3f} ms "
+              f"({ring_ms / single_ms:.2f}x)")
+    # One hop's kernel at the ring's shard shape (shard 0 against shard 0),
+    # by CUDA events: 16 of them are the ring forward's kernel time.
+    q25, r25 = ns_p1[:, :25000].contiguous(), ns_p2[:, :25000].contiguous()
+    l25 = T(np.array([25000]), torch.int64)
+    (x5, y5), (lx5, ly5), _ = case5
+    x25, y25 = x5[:, :25000].contiguous(), y5[:, :25000].contiguous()
+    lx25, ly25 = lx5.clamp(max=25000), ly5.clamp(max=25000)
+    hop_ms = {
+        "knn_topk_cuda 1 x 25k x 25k K=16": cuda_ms(
+            lambda: kk.knn_topk_cuda(q25, r25, l25, 16, 2), reps=10),
+        "knn_topk_cuda 1 x 25k x 25k K=100": cuda_ms(
+            lambda: kk.knn_topk_cuda(q25, r25, l25, 100, 2), reps=5),
+        "chamfer_nn_cuda 16 x 25k x 25k": cuda_ms(
+            lambda: kc.chamfer_nn_cuda(x25, y25, lx25, ly25, 2), reps=5),
+    }
+    print("  one hop's kernel (CUDA events, ms; a ring forward runs 16): "
+          + json.dumps({k: round(v, 4) for k, v in hop_ms.items()}))
+    return ring_launches, times
 
 
 def main() -> int:
@@ -1329,6 +1660,9 @@ def main() -> int:
     # ---------------- phase 5: kth-bound seeding ----------------
     phase5(cases, plain_path, note_err)
 
+    # ---------------- phase 6: the ring layer ----------------
+    ring_launches, _ = phase6(T, rng, plain_path)
+
     # ---------------- kernel times at the main path's shapes ----------------
     records = []
     full = T(np.array([100000]), torch.int64)
@@ -1517,6 +1851,12 @@ def main() -> int:
           "r=0.2; fps_batched 32 x 4096 (ragged) K=512; fps_resident 1 x "
           "1,000,000 K=1024; fps_streaming 1 x 4,000,000 K=512; all D=3")
 
+    # The ring's launches of the three kernels its hops run (phase 6).
+    for rec in records:
+        wrapper = {"knn_topk": "knn_topk_cuda", "chamfer_nn_bidir": "chamfer_nn_cuda",
+                   "scatter_add_rows": "scatter_add_rows"}.get(rec["name"])
+        if wrapper:
+            rec["ring_launches"] = ring_launches[wrapper]
     print(json.dumps({"kernels": records}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

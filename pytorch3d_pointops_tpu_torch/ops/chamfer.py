@@ -157,9 +157,16 @@ def _chamfer_distance_single_direction(
     abs_cosine: bool,
     feature_names=None,
     nn=None,
+    gather_fn=None,
 ):
     """One direction of the loss. ``nn`` optionally carries a precomputed
-    (dists (N, P1), idx (N, P1)) K=1 result from the bidirectional pass."""
+    (dists (N, P1), idx (N, P1)) K=1 result from the bidirectional pass.
+    ``gather_fn`` replaces the neighbour-feature gather (``knn_gather``'s
+    signature), as in the JAX package. The port's ring chamfer keeps the
+    default: its one process holds the whole features, so a ring gather
+    would fetch the same rows at a higher cost."""
+    if gather_fn is None:
+        gather_fn = knn_gather
     if feature_names and x_features is not None and y_features is not None:
         for name in feature_names:
             if name not in x_features:
@@ -207,7 +214,7 @@ def _chamfer_distance_single_direction(
         cham_features_x = {}
         # One gather for all feature channels, concatenated.
         y_cat = torch.cat([y_features[name] for name in feature_names], dim=-1)
-        near_cat = knn_gather(y_cat, nn_idx, y_lengths)[..., 0, :]
+        near_cat = gather_fn(y_cat, nn_idx, y_lengths)[..., 0, :]
         off = 0
         for name in feature_names:
             x_feature = x_features[name]

@@ -1,0 +1,583 @@
+"""Ring-parallel KNN and chamfer over a device mesh, in PyTorch.
+
+The port of ``pytorch3d_pointops_tpu/parallel/ring.py``. Query points p1
+shard over a mesh axis while the reference clouds p2 rotate around the
+ring, each position merging every visiting shard into a running top-K. The
+merge sorts the concatenated candidates on (distance, global index), so the
+result, exact ties included, does not depend on the order the shards visit
+in. Returned indices are global p2 indices (the shard offset is added at
+each hop), so the ring gives the single-device ops' results.
+
+One process drives the whole mesh, as JAX's single controller does. An
+entry point pads P1 and P2 to multiples of the ring size, splits the
+tensors into shards on their mesh devices and runs the ``n`` hops in
+Python. A hop moves each visiting shard, and the state that travels with
+it, to the next device with ``Tensor.to(device, non_blocking=True)``: a
+peer copy between cards, nothing on one card. So every update of a state is
+out of place: on one device the "sent" tensor is the object the neighbour
+holds.
+
+Every hop runs the port's kernels, the CUDA kernel on CUDA shards and its
+plain twin on CPU shards: ``kernels.knn.knn_topk`` (ring KNN),
+``kernels.chamfer.chamfer_nn_bidirectional`` (ring chamfer) and, in every
+backward hop, ``kernels.scatter.scatter_add_rows`` through
+``ops.knn.knn_backward``. A backward is a second ring pass inside a
+``torch.autograd.Function``: each (p2 shard, gradient accumulator) pair
+travels the full cycle, every position adds the contributions of its own
+queries whose neighbours fall in the visiting shard, and after ``n`` hops
+the accumulator is home. Autograd does not see the hops.
+
+The entry points take whole tensors. What ``point_sharding(mesh).shard``
+returned is first joined onto the mesh's first device and then split again
+into the ring's shards: two copies that a process-spanning ring would not
+make.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels import chamfer as _chamfer_kernel
+from ..kernels import knn as _knn_kernel
+from ..kernels import scatter as _scatter
+from ..ops.chamfer import (
+    _apply_batch_reduction,
+    _chamfer_distance_single_direction,
+    _combine_directions,
+    _validate_chamfer_reduction_inputs,
+)
+from ..ops.knn import _KNN, _apply_pad_conventions, _lengths, knn_backward, knn_gather
+from .mesh import Mesh, ShardedTensor, _block
+
+_INF = float("inf")
+
+
+def _on(device: torch.device):
+    """Make ``device`` current while a shard's kernels launch."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _whole(t):
+    """A whole tensor: a ``ShardedTensor`` is put back together."""
+    return t.full() if isinstance(t, ShardedTensor) else torch.as_tensor(t)
+
+
+class _Ring:
+    """The rings of a mesh along ``point_axis``: one for each index along
+    ``batch_axis`` (one ring when it is None), each the devices along
+    ``point_axis`` with every other axis at its first index (the data is
+    replicated along those axes, so one copy computes it)."""
+
+    def __init__(self, mesh: Mesh, point_axis: str, batch_axis: Optional[str]):
+        names = mesh.axis_names
+        if point_axis not in names:
+            raise ValueError(f"point_axis {point_axis!r} is not a mesh axis {names}")
+        if batch_axis is not None and (batch_axis not in names
+                                       or batch_axis == point_axis):
+            raise ValueError(f"batch_axis {batch_axis!r} must be another mesh "
+                             f"axis than point_axis (mesh axes {names})")
+        arr = mesh.devices
+        for ax in reversed(range(len(names))):
+            if names[ax] not in (point_axis, batch_axis):
+                arr = np.take(arr, 0, axis=ax)
+        if batch_axis is None:
+            arr = arr.reshape(1, -1)
+        elif names.index(batch_axis) > names.index(point_axis):
+            arr = arr.T
+        self.devices = [list(row) for row in arr]
+        self.n = len(self.devices[0])
+
+    def _batch_block(self, N: int) -> int:
+        return _block(N, len(self.devices), "the batch")
+
+    def split(self, t: torch.Tensor):
+        """Shards ``[group][position]`` of an (N, P, ...) tensor: one block
+        of the batch a ring, one block of the points a position, each
+        contiguous on its device."""
+        nb = self._batch_block(t.shape[0])
+        pl = _block(t.shape[1], self.n, "the point axis")
+        return [[t[g * nb:(g + 1) * nb, r * pl:(r + 1) * pl].to(dev).contiguous()
+                 for r, dev in enumerate(devs)]
+                for g, devs in enumerate(self.devices)]
+
+    def split_batch(self, t: torch.Tensor):
+        """The ring's block of an (N,) tensor, on each position's device."""
+        nb = self._batch_block(t.shape[0])
+        return [[t[g * nb:(g + 1) * nb].to(dev) for dev in devs]
+                for g, devs in enumerate(self.devices)]
+
+    def join(self, shards, device: torch.device) -> torch.Tensor:
+        """The inverse of ``split``, on ``device``."""
+        return torch.cat([torch.cat([s.to(device) for s in row], dim=1)
+                          for row in shards], dim=0)
+
+    def hop(self, g: int, items):
+        """Send what each position of ring ``g`` holds to the next one."""
+        devs = self.devices[g]
+        return [items[r - 1].to(devs[r], non_blocking=True) for r in range(self.n)]
+
+
+def _in_shard(idx, off: int, size: int):
+    """Global ``idx`` as indices into the shard at ``off``: -1 outside it."""
+    return torch.where((idx >= off) & (idx < off + size), idx - off, -1)
+
+
+def _local_lengths(lengths, off: int, size: int):
+    """Global lengths as the shard at ``off``'s own."""
+    return (lengths - off).clamp(0, size)
+
+
+def _merge_topk(sd, si, d, i, K: int):
+    """The K smallest of two candidate sets by (distance, global index):
+    a stable sort by index, then a stable sort by distance."""
+    d = torch.cat([sd, d], dim=2)
+    i, order = torch.sort(torch.cat([si, i], dim=2), dim=2, stable=True)
+    d, order = torch.sort(torch.gather(d, 2, order), dim=2, stable=True)
+    return d[..., :K], torch.gather(i, 2, order[..., :K])
+
+
+def _merge_nn(d, i, d_new, i_new):
+    """The nearer of two K=1 states, the lower global index on a tie."""
+    better = (d_new < d) | ((d_new == d) & (i_new < i))
+    return torch.where(better, d_new, d), torch.where(better, i_new, i)
+
+
+# ----------------------------- ring KNN -----------------------------
+
+def _ring_knn_fwd(ring: _Ring, p1, p2, lengths2, K: int, norm: int):
+    xs, ys, l2s = ring.split(p1), ring.split(p2), ring.split_batch(lengths2)
+    n, P2l = ring.n, p2.shape[1] // ring.n
+    out_d, out_i = [], []
+    for g, devs in enumerate(ring.devices):
+        y = ys[g]
+        sd = [torch.full((*x.shape[:2], K), _INF, device=x.device) for x in xs[g]]
+        si = [torch.zeros((*x.shape[:2], K), dtype=torch.int64, device=x.device)
+              for x in xs[g]]
+        for t in range(n):
+            for r, dev in enumerate(devs):
+                off = (r - t) % n * P2l
+                with _on(dev):
+                    len2 = _local_lengths(l2s[g][r], off, P2l)
+                    d, i = _knn_kernel.knn_topk(xs[g][r], y[r], len2, K, norm)
+                    sd[r], si[r] = _merge_topk(sd[r], si[r], d, i + off, K)
+            if t < n - 1:
+                y = ring.hop(g, y)
+        out_d.append(sd)
+        out_i.append(si)
+    return ring.join(out_d, p1.device), ring.join(out_i, p1.device)
+
+
+def _ring_knn_bwd(ring: _Ring, p1, p2, lengths1, lengths2, idx, grad, norm):
+    xs, ys = ring.split(p1), ring.split(p2)
+    l1s, l2s = ring.split_batch(lengths1), ring.split_batch(lengths2)
+    idxs, grads = ring.split(idx), ring.split(grad)
+    n, P1l, P2l = ring.n, p1.shape[1] // ring.n, p2.shape[1] // ring.n
+    gx_all, gy_all = [], []
+    for g, devs in enumerate(ring.devices):
+        len1 = [_local_lengths(l1s[g][r], r * P1l, P1l) for r in range(n)]
+        y = ys[g]
+        gy = [torch.zeros_like(s) for s in y]
+        gx = [torch.zeros_like(s) for s in xs[g]]
+        for t in range(n):
+            for r, dev in enumerate(devs):
+                with _on(dev):
+                    local = _in_shard(idxs[g][r], (r - t) % n * P2l, P2l)
+                    a, b = knn_backward(xs[g][r], y[r], len1[r], l2s[g][r], local,
+                                        norm, grads[g][r])
+                    gx[r] = gx[r] + a
+                    gy[r] = gy[r] + b
+            gy = ring.hop(g, gy)
+            if t < n - 1:
+                y = ring.hop(g, y)
+        gx_all.append(gx)
+        gy_all.append(gy)
+    return ring.join(gx_all, p1.device), ring.join(gy_all, p2.device)
+
+
+class _RingKnn(torch.autograd.Function):
+    """Ring KNN on padded inputs, the pad conventions applied; the backward
+    is the second ring pass."""
+
+    @staticmethod
+    def forward(ctx, p1, p2, lengths1, lengths2, ring, K, norm):
+        d, i = _ring_knn_fwd(ring, p1, p2, lengths2, K, norm)
+        d, i = _apply_pad_conventions(d, i, lengths1, lengths2, K, p1.shape[1])
+        ctx.save_for_backward(p1, p2, lengths1, lengths2, i)
+        ctx.ring, ctx.norm = ring, norm
+        ctx.mark_non_differentiable(i)
+        return d, i
+
+    @staticmethod
+    def backward(ctx, grad_dists, _grad_idx):
+        p1, p2, lengths1, lengths2, idx = ctx.saved_tensors
+        gp1, gp2 = _ring_knn_bwd(ctx.ring, p1, p2, lengths1, lengths2, idx,
+                                 grad_dists.to(torch.float32), ctx.norm)
+        return gp1, gp2, None, None, None, None, None
+
+
+def _pad_points(a, P: int):
+    return F.pad(a, (0, 0, 0, P - a.shape[1])) if a.shape[1] != P else a
+
+
+def _ring_multiple(P: int, n: int) -> int:
+    return -(-P // n) * n
+
+
+def ring_knn_points(
+    p1,
+    p2,
+    lengths1: Optional[torch.Tensor] = None,
+    lengths2: Optional[torch.Tensor] = None,
+    norm: int = 2,
+    K: int = 1,
+    *,
+    mesh: Mesh,
+    point_axis: str = "sp",
+    batch_axis: Optional[str] = None,
+    return_nn: bool = False,
+) -> _KNN:
+    """KNN with p1 sharded over ``point_axis`` and p2 rotated around the ring.
+
+    Semantics identical to ``ops.knn.knn_points`` (global indices, the
+    reference's pad conventions). P1 and P2 that do not divide the ring size
+    are padded inside (the pad rows and columns are excluded by the lengths
+    masks and trimmed from the outputs), so any shape runs unmodified.
+    ``p1`` and ``p2`` are tensors or what ``point_sharding(mesh).shard``
+    returned; the outputs are whole tensors on ``p1``'s device.
+    Differentiable with respect to p1 and p2 through the backward ring pass.
+    """
+    p1, p2 = _whole(p1), _whole(p2)
+    if p1.shape[0] != p2.shape[0]:
+        raise ValueError("pts1 and pts2 must have the same batch dimension.")
+    if p1.shape[2] != p2.shape[2]:
+        raise ValueError("pts1 and pts2 must have the same point dimension.")
+    if not (norm == 1 or norm == 2):
+        raise ValueError("Support for 1 or 2 norm.")
+    ring = _Ring(mesh, point_axis, batch_axis)
+
+    p1 = p1.to(torch.float32)
+    p2 = p2.to(torch.float32)
+    N, P1, _ = p1.shape
+    P2 = p2.shape[1]
+    lengths1 = _lengths(lengths1, N, P1, p1.device)
+    lengths2 = _lengths(lengths2, N, P2, p1.device)
+
+    # Pad queries are zeroed by the lengths1 row mask and trimmed below; pad
+    # candidates sit past every lengths2, so no hop admits them.
+    p1p = _pad_points(p1, _ring_multiple(P1, ring.n))
+    p2p = _pad_points(p2, _ring_multiple(P2, ring.n))
+    dists, idx = _RingKnn.apply(p1p, p2p, lengths1, lengths2, ring, K, norm)
+    dists, idx = dists[:, :P1], idx[:, :P1]
+    nn = knn_gather(p2, idx, lengths2) if return_nn else None
+    return _KNN(dists=dists, idx=idx, knn=nn)
+
+
+# ----------------------------- ring gather -----------------------------
+
+def _ring_gather_fwd(ring: _Ring, values, idx):
+    vs, idxs = ring.split(values), ring.split(idx)
+    n, P2l = ring.n, values.shape[1] // ring.n
+    out = []
+    for g, devs in enumerate(ring.devices):
+        y = vs[g]
+        acc = [torch.zeros((*i.shape, values.shape[2]), dtype=values.dtype,
+                           device=i.device) for i in idxs[g]]
+        for t in range(n):
+            for r in range(n):
+                local = _in_shard(idxs[g][r], (r - t) % n * P2l, P2l)
+                N, L, K = local.shape
+                rows = torch.gather(y[r], 1, local.clamp(min=0).reshape(N, L * K, 1)
+                                    .expand(N, L * K, y[r].shape[2]))
+                acc[r] = acc[r] + torch.where(local[..., None] >= 0,
+                                              rows.reshape(N, L, K, -1), 0.0)
+            if t < n - 1:
+                y = ring.hop(g, y)
+        out.append(acc)
+    return ring.join(out, values.device)
+
+
+def _ring_gather_bwd(ring: _Ring, idx, grad, rows: int):
+    idxs, grads = ring.split(idx), ring.split(grad)
+    n, P2l = ring.n, rows // ring.n
+    out = []
+    for g, devs in enumerate(ring.devices):
+        gy = [torch.zeros((i.shape[0], P2l, grad.shape[-1]), device=i.device)
+              for i in idxs[g]]
+        for t in range(n):
+            for r, dev in enumerate(devs):
+                with _on(dev):
+                    N = idxs[g][r].shape[0]
+                    local = _in_shard(idxs[g][r], (r - t) % n * P2l, P2l)
+                    gy[r] = gy[r] + _scatter.scatter_add_rows(
+                        local.reshape(N, -1),
+                        grads[g][r].reshape(N, -1, grad.shape[-1]), P2l)
+            gy = ring.hop(g, gy)
+        out.append(gy)
+    return ring.join(out, grad.device)
+
+
+class _RingGather(torch.autograd.Function):
+    """Rows of ring-sharded values at global indices; the backward scatters
+    into accumulators that ride the ring home."""
+
+    @staticmethod
+    def forward(ctx, values, idx, ring):
+        ctx.save_for_backward(idx)
+        ctx.ring, ctx.rows, ctx.dtype = ring, values.shape[1], values.dtype
+        return _ring_gather_fwd(ring, values, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        gv = _ring_gather_bwd(ctx.ring, idx, grad.to(torch.float32), ctx.rows)
+        return gv.to(ctx.dtype), None, None
+
+
+def ring_knn_gather(
+    x,
+    idx,
+    lengths: Optional[torch.Tensor] = None,
+    *,
+    mesh: Mesh,
+    point_axis: str = "sp",
+    batch_axis: Optional[str] = None,
+) -> torch.Tensor:
+    """``knn_gather`` with values ``x`` (N, M, U) and indices (N, L, K) both
+    sharded over ``point_axis`` (M and L multiples of its size): value
+    shards rotate around the ring instead of being gathered whole.
+    Differentiable with respect to ``x``; zero-fills entries where
+    ``k >= lengths[n]`` exactly like ``ops.knn.knn_gather``."""
+    x, idx = _whole(x), _whole(idx)
+    N, M, _ = x.shape
+    K = idx.shape[2]
+    lengths = _lengths(lengths, N, M, x.device)
+    ring = _Ring(mesh, point_axis, batch_axis)
+    gathered = _RingGather.apply(x, idx.to(torch.int64), ring)
+    mask = torch.arange(K, device=x.device)[None, None, :] < lengths[:, None, None]
+    return torch.where(mask[..., None], gathered, 0.0)
+
+
+# ----------------------------- ring chamfer -----------------------------
+
+def _ring_nn_fwd(ring: _Ring, x, y, x_lengths, y_lengths, norm: int):
+    """One rotation serves both K=1 directions: each y shard travels with
+    its own running (min, argmin) state, so every (x shard, y shard) pair
+    meets once and one kernel launch gives the x -> y row minima and the
+    visiting shard's y -> x column minima."""
+    xs, ys = ring.split(x), ring.split(y)
+    l1s, l2s = ring.split_batch(x_lengths), ring.split_batch(y_lengths)
+    n, P1l, P2l = ring.n, x.shape[1] // ring.n, y.shape[1] // ring.n
+    outs = ([], [], [], [])
+    for g, devs in enumerate(ring.devices):
+        yv = ys[g]
+        xd = [torch.full(s.shape[:2], _INF, device=s.device) for s in xs[g]]
+        xi = [torch.zeros(s.shape[:2], dtype=torch.int64, device=s.device)
+              for s in xs[g]]
+        yd = [torch.full(s.shape[:2], _INF, device=s.device) for s in yv]
+        yi = [torch.zeros(s.shape[:2], dtype=torch.int64, device=s.device) for s in yv]
+        len1 = [_local_lengths(l1s[g][r], r * P1l, P1l) for r in range(n)]
+        for t in range(n):
+            for r, dev in enumerate(devs):
+                off2 = (r - t) % n * P2l
+                with _on(dev):
+                    len2 = _local_lengths(l2s[g][r], off2, P2l)
+                    d1, i1, d2, i2 = _chamfer_kernel.chamfer_nn_bidirectional(
+                        xs[g][r], yv[r], len1[r], len2, norm)
+                    xd[r], xi[r] = _merge_nn(xd[r], xi[r], d1, i1 + off2)
+                    yd[r], yi[r] = _merge_nn(yd[r], yi[r], d2, i2 + r * P1l)
+            yd, yi = ring.hop(g, yd), ring.hop(g, yi)
+            if t < n - 1:
+                yv = ring.hop(g, yv)
+        for out, part in zip(outs, (xd, xi, yd, yi)):
+            out.append(part)
+    return (ring.join(outs[0], x.device), ring.join(outs[1], x.device),
+            ring.join(outs[2], y.device), ring.join(outs[3], y.device))
+
+
+def _ring_nn_bwd(ring: _Ring, x, y, x_lengths, y_lengths, i_xy, gd_xy, i_yx,
+                 gd_yx, norm: int):
+    """One backward rotation for both directions: the visiting tuple carries
+    (y shard, its y -> x indices and gradients, its gradient accumulator);
+    each hop adds the x -> y terms of local queries whose neighbour is in
+    the visiting shard and the y -> x terms of visiting queries whose
+    neighbour is in the local x shard."""
+    xs, ys = ring.split(x), ring.split(y)
+    l1s, l2s = ring.split_batch(x_lengths), ring.split_batch(y_lengths)
+    ixy, gxy = ring.split(i_xy), ring.split(gd_xy)
+    iyx, gyx = ring.split(i_yx), ring.split(gd_yx)
+    n, P1l, P2l = ring.n, x.shape[1] // ring.n, y.shape[1] // ring.n
+    gx_all, gy_all = [], []
+    for g, devs in enumerate(ring.devices):
+        len1 = [_local_lengths(l1s[g][r], r * P1l, P1l) for r in range(n)]
+        yv, iy, gy = ys[g], iyx[g], gyx[g]
+        acc = [torch.zeros_like(s) for s in yv]
+        gx = [torch.zeros_like(s) for s in xs[g]]
+        for t in range(n):
+            for r, dev in enumerate(devs):
+                off1, off2 = r * P1l, (r - t) % n * P2l
+                with _on(dev):
+                    # x -> y: local queries whose neighbour is in the visiting
+                    # shard; the K=1 KNN backward, whose k < lengths2 mask is
+                    # the K=1 rule lengths2 > 0.
+                    a, b = knn_backward(
+                        xs[g][r], yv[r], len1[r], l2s[g][r],
+                        _in_shard(ixy[g][r], off2, P2l)[..., None], norm,
+                        gxy[g][r][..., None])
+                    gx[r] = gx[r] + a
+                    acc[r] = acc[r] + b
+                    # y -> x: visiting queries whose neighbour is in the local shard.
+                    a, b = knn_backward(
+                        yv[r], xs[g][r], _local_lengths(l2s[g][r], off2, P2l),
+                        l1s[g][r], _in_shard(iy[r], off1, P1l)[..., None], norm,
+                        gy[r][..., None])
+                    acc[r] = acc[r] + a
+                    gx[r] = gx[r] + b
+            acc = ring.hop(g, acc)
+            if t < n - 1:
+                yv, iy, gy = ring.hop(g, yv), ring.hop(g, iy), ring.hop(g, gy)
+        gx_all.append(gx)
+        gy_all.append(acc)
+    return ring.join(gx_all, x.device), ring.join(gy_all, y.device)
+
+
+class _RingNNBidir(torch.autograd.Function):
+    """Both chamfer K=1 directions from one ring rotation, with the pad
+    conventions applied per direction. Returns (d_xy, i_xy, d_yx, i_yx)."""
+
+    @staticmethod
+    def forward(ctx, x, y, x_lengths, y_lengths, ring, norm):
+        d1, i1, d2, i2 = _ring_nn_fwd(ring, x, y, x_lengths, y_lengths, norm)
+        d1, i1 = _apply_pad_conventions(
+            d1[..., None], i1[..., None], x_lengths, y_lengths, 1, x.shape[1])
+        d2, i2 = _apply_pad_conventions(
+            d2[..., None], i2[..., None], y_lengths, x_lengths, 1, y.shape[1])
+        i1, i2 = i1[..., 0], i2[..., 0]
+        ctx.save_for_backward(x, y, x_lengths, y_lengths, i1, i2)
+        ctx.ring, ctx.norm = ring, norm
+        ctx.mark_non_differentiable(i1, i2)
+        return d1[..., 0], i1, d2[..., 0], i2
+
+    @staticmethod
+    def backward(ctx, gd1, _gi1, gd2, _gi2):
+        x, y, x_lengths, y_lengths, i1, i2 = ctx.saved_tensors
+        gx, gy = _ring_nn_bwd(ctx.ring, x, y, x_lengths, y_lengths, i1,
+                              gd1.to(torch.float32), i2, gd2.to(torch.float32),
+                              ctx.norm)
+        return gx, gy, None, None, None, None
+
+
+def ring_chamfer_distance(
+    x,
+    y,
+    x_lengths: Optional[torch.Tensor] = None,
+    y_lengths: Optional[torch.Tensor] = None,
+    x_features: Optional[dict] = None,
+    y_features: Optional[dict] = None,
+    weights: Optional[torch.Tensor] = None,
+    batch_reduction: Optional[str] = "mean",
+    point_reduction: Optional[str] = "mean",
+    norm: int = 2,
+    single_directional: bool = False,
+    abs_cosine: bool = True,
+    feature_names: Optional[list] = None,
+    *,
+    mesh: Mesh,
+    point_axis: str = "sp",
+    batch_axis: Optional[str] = None,
+):
+    """Chamfer distance with both clouds sharded over the ring axis.
+
+    One ring rotation serves both nearest-neighbour directions (the y shards
+    travel with their running minima), and the reduction, feature and
+    weights semantics are ``ops.chamfer``'s own code
+    (``_chamfer_distance_single_direction``), so the ring can never drift
+    from the single-device option matrix. Named feature channels fetch
+    neighbour features with ``knn_gather``: the one process already holds
+    the whole padded features on ``x``'s device, where the ring gather would
+    take the same rows at the cost of n^2 gathers (and, for features that
+    need gradients, n^2 scatters). ``single_directional`` runs the K=1 ring
+    KNN instead.
+
+    Returns ``loss`` alone when no features are requested, else
+    ``(loss, loss_features)``.
+    """
+    _validate_chamfer_reduction_inputs(batch_reduction, point_reduction)
+    if not (norm == 1 or norm == 2):
+        raise ValueError("Support for 1 or 2 norm.")
+    return_features = (
+        x_features is not None
+        and y_features is not None
+        and feature_names is not None
+        and len(feature_names) > 0
+    )
+    if return_features and point_reduction == "max":
+        raise ValueError('Features must be None if point_reduction is "max"')
+    ring = _Ring(mesh, point_axis, batch_axis)
+
+    x = _whole(x).to(torch.float32)
+    y = _whole(y).to(torch.float32)
+    N, P1, _ = x.shape
+    P2 = y.shape[1]
+    x_lengths = _lengths(x_lengths, N, P1, x.device)
+    y_lengths = _lengths(y_lengths, N, P2, x.device)
+    if weights is not None:
+        weights = torch.as_tensor(weights, device=x.device)
+
+    # Points and features padded to ring multiples up front; the lengths
+    # masks exclude every pad row from losses, gathers and gradients.
+    P1pad, P2pad = _ring_multiple(P1, ring.n), _ring_multiple(P2, ring.n)
+    xp, yp = _pad_points(x, P1pad), _pad_points(y, P2pad)
+    xf = yf = None
+    if x_features is not None:
+        xf = {k: _pad_points(_whole(v), P1pad) for k, v in x_features.items()}
+    if y_features is not None:
+        yf = {k: _pad_points(_whole(v), P2pad) for k, v in y_features.items()}
+
+    if single_directional:
+        # One direction needs no y -> x minima: the K=1 ring KNN skips the
+        # y state's hops and the backward's y -> x terms.
+        d1k, i1k = _RingKnn.apply(xp, yp, x_lengths, y_lengths, ring, 1, norm)
+        d1, i1 = d1k[..., 0], i1k[..., 0]
+    else:
+        d1, i1, d2, i2 = _RingNNBidir.apply(xp, yp, x_lengths, y_lengths, ring, norm)
+
+    cham_x, feats_x = _chamfer_distance_single_direction(
+        xp, yp, x_lengths, y_lengths, xf, yf, weights, point_reduction,
+        norm, abs_cosine, feature_names, nn=(d1, i1),
+    )
+    if single_directional:
+        loss, loss_features = cham_x, feats_x
+    else:
+        cham_y, feats_y = _chamfer_distance_single_direction(
+            yp, xp, y_lengths, x_lengths, yf, xf, weights, point_reduction,
+            norm, abs_cosine, feature_names, nn=(d2, i2),
+        )
+        loss, loss_features = _combine_directions(
+            cham_x, feats_x, cham_y, feats_y, point_reduction
+        )
+
+    if point_reduction is None:
+        # Un-reduced terms keep the caller's point counts.
+        if single_directional:
+            loss = loss[:, :P1]
+            if loss_features is not None:
+                loss_features = {k: v[:, :P1] for k, v in loss_features.items()}
+        else:
+            loss = (loss[0][:, :P1], loss[1][:, :P2])
+            if loss_features is not None:
+                loss_features = {k: (v[0][:, :P1], v[1][:, :P2])
+                                 for k, v in loss_features.items()}
+
+    loss, loss_features = _apply_batch_reduction(
+        loss, loss_features, weights, batch_reduction
+    )
+    if return_features:
+        return loss, loss_features
+    return loss

@@ -144,6 +144,36 @@ def test_chamfer_tied_max_gradient_matches_jax(single_directional):
     np.testing.assert_allclose(tx.grad.numpy()[0, :, 0], want, rtol=TOL, atol=TOL)
 
 
+def test_chamfer_gather_fn_hook():
+    """``_chamfer_distance_single_direction(gather_fn=)``, JAX's hook for
+    the neighbour-feature gather: a custom gather that calls ``knn_gather``
+    gives the default's loss, features and gradients."""
+    from pytorch3d_pointops_tpu_torch.ops import chamfer as oc
+    from pytorch3d_pointops_tpu_torch.ops.knn import knn_gather
+
+    x, y, l1, l2 = _clouds(12)
+    rng = np.random.default_rng(13)
+    fx = {"n": _t(rng.normal(size=(2, 24, 3)).astype(np.float32))}
+    fy = {"n": _t(rng.normal(size=(2, 36, 3)).astype(np.float32))}
+    calls = []
+
+    def gather(v, idx, lengths):
+        calls.append(idx.shape)
+        return knn_gather(v, idx, lengths)
+
+    outs = []
+    for fn in (None, gather):
+        tx = _t(x, requires_grad=True)
+        out = oc._chamfer_distance_single_direction(
+            tx, _t(y), _t(l1), _t(l2), fx, fy, None, "mean", 2, True, ["n"],
+            gather_fn=fn)
+        (out[0].sum() + out[1]["n"].sum()).backward()
+        outs.append((out[0], out[1]["n"], tx.grad))
+    assert calls == [(2, 24, 1)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("weights", [[0.5, 2.0], [0.0, 0.0]])
 @pytest.mark.parametrize("point_reduction", ["mean", None])
 def test_chamfer_weights_match_jax(weights, point_reduction):

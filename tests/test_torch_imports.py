@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing it, or chip_smoke.py, loads
 neither JAX nor the JAX package, and it exports every public name of the
-JAX package."""
+JAX package and of its ``parallel`` layer."""
 
 import os
 import subprocess
@@ -38,6 +38,10 @@ def test_port_imports_no_jax():
         "pytorch3d_pointops_tpu_torch.kernels.chamfer",
         "pytorch3d_pointops_tpu_torch.kernels.ball_query",
         "pytorch3d_pointops_tpu_torch.kernels.fps",
+        "pytorch3d_pointops_tpu_torch.parallel",
+        "pytorch3d_pointops_tpu_torch.parallel.mesh",
+        "pytorch3d_pointops_tpu_torch.parallel.ring",
+        "pytorch3d_pointops_tpu_torch.parallel.multihost",
         "pytorch3d_pointops_tpu_torch.tune_fps",
         "pytorch3d_pointops_tpu_torch.tune_knn",
         "pytorch3d_pointops_tpu_torch.profile_step",
@@ -62,3 +66,17 @@ def test_port_exports_the_jax_names_it_ports():
     assert ported == set(jp.__all__)
     for name in ppt.__all__:
         assert hasattr(ppt, name)
+
+
+def test_parallel_exports_the_jax_parallel_names():
+    import pytorch3d_pointops_tpu.parallel as jpar
+    import pytorch3d_pointops_tpu_torch as ppt
+    import pytorch3d_pointops_tpu_torch.parallel as tpar
+
+    assert set(tpar.__all__) == set(jpar.__all__)
+    for name in tpar.__all__:
+        assert hasattr(tpar, name)
+    for name in ("initialize", "host_local_to_global", "global_to_host_local"):
+        assert callable(getattr(tpar.multihost, name))
+    # As in the JAX package, the top level does not export the ring.
+    assert not set(tpar.__all__) & set(ppt.__all__)

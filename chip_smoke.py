@@ -116,9 +116,27 @@ single-card chamfer NN against its plain twin too). So are the edges
 points at K=16; both kernels' raw (inf, 0) output on such shards, which is
 also held against the plain twins) and config 3 over a 2 x 2 ``("dp",
 "sp")`` mesh. It prints the ring's wall time beside the single card's for
-each shape, and one hop's kernel time at the shard shape. The line
-before the last is one JSON object with a record per kernel (the three
-kernels the ring runs also carry ``ring_launches``); the last line is
+each shape, and one hop's kernel time at the shard shape.
+
+Phase 7 runs the ring across processes: four workers, spawned after the
+build, each one position of a ``("sp",)`` process mesh
+(``multihost.process_mesh``) and of a 2 x 2 ``("dp", "sp")`` one, all on
+``cuda:0``. NCCL refuses two ranks on one card ("Duplicate GPU
+detected"), so the group is gloo and every hop is staged through the host;
+the kernels run on the card. Each worker drives the main path on its own
+blocks with its own launch counts (config 5's ring chamfer, five SGD
+steps; the north-star ring KNN at K=16 fwd+bwd and K=100 fwd), then the
+edges and config 3 on the 2 x 2 mesh, and holds every output and gradient
+block against phase 6's one-process ring on the same inputs (indices
+equal, distances bit-equal, losses within rel 1e-5, gradients within 1e-5
+of the largest entry; the losses equal on every rank). It prints the
+transport, each rank's launches, the step's wall ms (the maximum over
+ranks) beside phase 6's and one hop's transfer ms: four processes sharing
+one card, hops through the host, the protocol's cost and not a scaling
+figure. A failed worker or check, or workers still running after 300 s,
+fails the script. The line before the last is one JSON object with a
+record per kernel (the three kernels the rings run also carry
+``ring_launches`` and rank 0's ``procs_launches``); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line. Without CUDA it exits 1 at once.
 """
@@ -972,7 +990,343 @@ def phase6(T, rng, plain_path):
     }
     print("  one hop's kernel (CUDA events, ms; a ring forward runs 16): "
           + json.dumps({k: round(v, 4) for k, v in hop_ms.items()}))
-    return ring_launches, times
+    inputs = dict(case5=case5, ns=(ns_p1, ns_p2), edge=(rq, rr, l1e, l2e), rag=rag,
+                  case3=case3)
+    return ring_launches, times, inputs
+
+
+# The ring across processes (phase 7). Four workers share cuda:0; NCCL
+# refuses two ranks on one card, so their group is gloo and every hop is
+# staged through the host (see PROCS_BACKEND).
+PROCS = 4
+PROCS_BACKEND = "gloo"
+PROCS_JOIN_S = 300
+CHAMFER_NAMES = ["normals", "colors"]
+
+
+def procs_chamfer(p, case, mesh, **kw):
+    """One ring chamfer fwd+bwd, mean/mean with both feature terms, on
+    whole tensors (a mesh of this process's devices) or blocks (a process
+    mesh). Returns the three losses."""
+    from pytorch3d_pointops_tpu_torch.parallel import ring_chamfer_distance
+
+    (_, y), (lx, ly), (fx, fy) = case
+    loss, lf = ring_chamfer_distance(p, y, lx, ly, fx, fy, feature_names=CHAMFER_NAMES,
+                                     mesh=mesh, **kw)
+    (loss + lf["normals"] + lf["colors"]).backward()
+    return [loss.item(), lf["normals"].item(), lf["colors"].item()]
+
+
+def procs_knn(q, r, l1, l2, K, mesh, backward=True):
+    """Ring KNN on whole tensors or blocks; the backward weighs the K
+    columns 0.5 to 1.5 (on a process mesh each process sums its block's
+    terms: the gradient of the global sum). Returns (out, grad q, grad r)."""
+    from pytorch3d_pointops_tpu_torch.parallel import ring_knn_points
+
+    q = q.detach().requires_grad_(backward)
+    r = r.detach().requires_grad_(backward)
+    out = ring_knn_points(q, r, l1, l2, K=K, mesh=mesh)
+    if backward:
+        (out.dists * torch.linspace(0.5, 1.5, K, device=out.dists.device)).sum().backward()
+    return out, q.grad, r.grad
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def procs_steps(p0, case, mesh, lr, steps=5):
+    """``steps`` SGD steps of the ring chamfer from ``p0``: the losses of
+    each step, the first step's gradient and each step's wall ms (the
+    ranks of a process mesh start each step together)."""
+    import torch.distributed as dist
+
+    dev = p0.device
+    p = p0.detach().clone().requires_grad_(True)
+    losses, ms, g0 = [], [], None
+    for _ in range(steps):
+        sync(dev)
+        if dist.is_initialized():
+            dist.barrier()
+        t0 = time.perf_counter()
+        losses.append(procs_chamfer(p, case, mesh))
+        g0 = p.grad.clone() if g0 is None else g0
+        with torch.no_grad():
+            p -= lr * p.grad
+        p.grad = None
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, g0, ms
+
+
+def procs_reference(inputs, dev):
+    """What phase 6's one-process ring (four shards of ``cuda:0``) gives on
+    phase 7's inputs, as CPU tensors."""
+    from pytorch3d_pointops_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh((PROCS,), ("sp",), devices=[dev] * PROCS)
+    mesh2 = make_mesh((2, 2), ("dp", "sp"), devices=[dev] * PROCS)
+    ref = {}
+    case5 = inputs["case5"]
+    ref["steps"] = procs_steps(case5[0][0], case5, mesh, inputs["lr"])
+    for key, (q, r, l1, l2, K, backward) in inputs["knn"].items():
+        out, gq, gr = procs_knn(q, r, l1, l2, K, mesh, backward)
+        ref[key] = (out.dists, out.idx, gq, gr)
+    for key, (case, kw) in inputs["chamfer"].items():
+        p = case[0][0].detach().clone().requires_grad_(True)
+        mesh_ = mesh2 if kw else mesh
+        ref[key] = (procs_chamfer(p, case, mesh_, **kw), p.grad)
+    sync(dev)
+    return _to(ref, torch.device("cpu"))
+
+
+def _to(obj, device):
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to(o, device) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _to(v, device) for k, v in obj.items()}
+    return obj
+
+
+def procs_worker(rank: int, tmp: str, device: str) -> None:
+    """One rank of phase 7: its position of a ``("sp",)`` process mesh on
+    ``cuda:0`` (and of a 2 x 2 ``("dp", "sp")`` one). Runs the main path
+    with its own launch counts, holds each of its output and gradient
+    blocks against the one-process ring's, times a step and a hop, and
+    writes ``rank<r>.json``. A failed check raises, which fails the
+    parent's join. ``device`` is ``cuda:0`` (the CPU rehearses the flow)."""
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+
+    from pytorch3d_pointops_tpu_torch.kernels import chamfer as kc
+    from pytorch3d_pointops_tpu_torch.kernels import knn as kk
+    from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
+    from pytorch3d_pointops_tpu_torch.parallel import multihost
+    from pytorch3d_pointops_tpu_torch.parallel.mesh import NamedSharding
+    from pytorch3d_pointops_tpu_torch.parallel.ring import _ProcessRing
+
+    dev = torch.device(device)
+    multihost.initialize("file://" + os.path.join(tmp, "init"), num_processes=PROCS,
+                         process_id=rank, backend=PROCS_BACKEND)
+    mesh = multihost.process_mesh((PROCS,), ("sp",), device=dev)
+    mesh2 = multihost.process_mesh((2, 2), ("dp", "sp"), device=dev)
+    saved = torch.load(os.path.join(tmp, "phase7.pt"), mmap=True)
+    inputs, ref = _to(saved["inputs"], dev), saved["ref"]
+
+    def spec(m):
+        return ("dp", "sp", None) if m is mesh2 else (None, "sp", None)
+
+    def block(t, m=mesh):
+        """This rank's block of a whole (N, P, ...) tensor."""
+        sp = spec(m) + (None,) * (t.dim() - 3)
+        return NamedSharding(m, sp[:t.dim()]).shard(t).local
+
+    def on_mesh(case, m=mesh):
+        """A chamfer case with this rank's blocks of the points and
+        features; the lengths stay global."""
+        (x, y), lens, (fx, fy) = case
+        return ((block(x, m), block(y, m)), lens,
+                tuple({k: block(v, m) for k, v in f.items()} for f in (fx, fy)))
+
+    def grad_err(what, g, whole, m=mesh):
+        """``g`` within TOL of the largest entry of the whole reference."""
+        scale = whole.abs().max().item()
+        err = (g.cpu() - block(whole.to(dev), m).cpu()).abs().max().item()
+        require(scale > 0 and err <= TOL * scale,
+                f"rank {rank} {what}: gradient err {err} against largest entry {scale}")
+        return err
+
+    def loss_err(what, got, want):
+        rels = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        require(all(r <= TOL for r in rels), f"rank {rank} {what}: losses {got} vs {want}")
+        return max(rels)
+
+    counters = (kk.knn_topk_cuda, kc.chamfer_nn_cuda, ks.scatter_add_rows)
+    res = {"rank": rank, "transport": _ProcessRing(mesh, "sp", None).transport,
+           "launches": {}, "errors": {}}
+
+    # -- the main path: nothing but what a user would call --
+    for c in counters:
+        c.launches = 0
+    case5 = on_mesh(inputs["case5"])
+    losses, g0, res["step_ms"] = procs_steps(case5[0][0], case5, mesh, inputs["lr"])
+    res["launches"]["config 5 ring chamfer, 5 steps"] = {
+        c.__name__: c.launches for c in counters}
+    q, r, l1, l2, K, bwd = inputs["knn"]["north-star K=16"]
+    ns16 = procs_knn(block(q), block(r), l1, l2, K, mesh, bwd)
+    res["launches"]["+ north-star ring knn K=16 fwd+bwd"] = {
+        c.__name__: c.launches for c in counters}
+    q, r, l1, l2, K, bwd = inputs["knn"]["north-star K=100 (fwd)"]
+    ns100 = procs_knn(block(q), block(r), l1, l2, K, mesh, bwd)
+    sync(dev)
+    res["launches"]["+ north-star ring knn K=100 fwd"] = {
+        c.__name__: c.launches for c in counters}
+    # -- end of the main path --
+
+    rlosses, rg0, _ = ref["steps"]
+    res["losses"] = losses
+    res["errors"]["config 5 ring chamfer, 5 steps"] = {
+        "loss_rel": max(loss_err(f"config 5 step {i}", a, b)
+                        for i, (a, b) in enumerate(zip(losses, rlosses))),
+        "grad": grad_err("config 5 first step", g0, rg0),
+        "grad_bit_equal": bool(torch.equal(g0.cpu(), block(rg0.to(dev)).cpu())),
+    }
+    outs = {"north-star K=16": ns16, "north-star K=100 (fwd)": ns100}
+    for key, (q, r, l1, l2, K, bwd) in inputs["knn"].items():
+        out, gq, gr = outs[key] if key in outs else procs_knn(
+            block(q), block(r), l1, l2, K, mesh, bwd)
+        d_ref, i_ref, gq_ref, gr_ref = ref[key]
+        require(torch.equal(out.idx.cpu(), block(i_ref.to(dev)).cpu()),
+                f"rank {rank} {key}: indices differ from the one-process ring")
+        require(torch.equal(out.dists.cpu(), block(d_ref.to(dev)).cpu()),
+                f"rank {rank} {key}: distances not bit-equal to the one-process ring")
+        e = {"idx_equal": True, "dists_bit_equal": True}
+        if bwd:
+            e["grad_q"] = grad_err(f"{key} grad q", gq, gq_ref)
+            e["grad_r"] = grad_err(f"{key} grad r", gr, gr_ref)
+        res["errors"][key] = e
+    for key, (case, kw) in inputs["chamfer"].items():
+        m = mesh2 if kw else mesh
+        c = on_mesh(case, m)
+        p = c[0][0].detach().clone().requires_grad_(True)
+        got = procs_chamfer(p, c, m, **kw)
+        res["errors"][key] = {"loss_rel": loss_err(key, got, ref[key][0]),
+                              "grad": grad_err(key, p.grad, ref[key][1], m)}
+        res.setdefault("chamfer_losses", {})[key] = got
+
+    # Times, warm: a step is timed above; the north-star K=16 call again,
+    # and one forward hop of the config 5 chamfer (its y shard, running
+    # minima and argmins: 16 x 25,000 x (12 + 4 + 8) bytes).
+    q, r, l1, l2, K, bwd = inputs["knn"]["north-star K=16"]
+    qb, rb = block(q), block(r)
+    knn_ms = []
+    for _ in range(3):
+        sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        procs_knn(qb, rb, l1, l2, K, mesh, True)
+        sync(dev)
+        knn_ms.append((time.perf_counter() - t0) * 1e3)
+    res["knn16_ms"] = knn_ms
+    ring = _ProcessRing(mesh, "sp", None)
+    y5 = case5[0][1]
+    travel = [y5, torch.zeros(y5.shape[:2], device=dev),
+              torch.zeros(y5.shape[:2], dtype=torch.int64, device=dev)]
+    # And one hop of the north-star ring KNN forward: its y shard alone.
+    for key, tensors in (("hop", travel), ("hop_knn", [rb])):
+        hop_ms = []
+        for _ in range(6):
+            sync(dev)
+            dist.barrier()
+            t0 = time.perf_counter()
+            ring.exchange(tensors)
+            sync(dev)
+            hop_ms.append((time.perf_counter() - t0) * 1e3)
+        res[f"{key}_ms"] = hop_ms[1:]
+        res[f"{key}_bytes"] = sum(t.numel() * t.element_size() for t in tensors)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def phase7(inputs6, times6, dev):
+    """The ring across processes on the card: ``PROCS`` spawned workers,
+    one position each of a process mesh on ``cuda:0`` (gloo, every hop
+    staged through the host), held against phase 6's one-process ring on
+    the same inputs. Four processes share one card and their hops go
+    through the host: the protocol's cost, not a scaling figure. Returns
+    rank 0's launches on the main path."""
+    import tempfile
+
+    (x5, y5), (lx5, ly5), _ = inputs6["case5"]
+    ns_p1, ns_p2 = inputs6["ns"]
+    rq, rr, l1e, l2e = inputs6["edge"]
+    inputs = {
+        "case5": inputs6["case5"],
+        "lr": 0.2 * x5.shape[0] * x5.shape[1],
+        "knn": {
+            "north-star K=16": (ns_p1, ns_p2, None, None, 16, True),
+            "north-star K=100 (fwd)": (ns_p1, ns_p2, None, None, 100, False),
+            "ragged knn, lengths2 0 / 1 / P-1, K=16": (rq, rr, l1e, l2e, 16, True),
+            "knn over shards of 10 points, K=16": (rq[:, :40].contiguous(),
+                                                   rr[:, :40].contiguous(),
+                                                   None, None, 16, True),
+        },
+        "chamfer": {
+            "ragged chamfer, lengths 0 / 1 / P-1": (inputs6["rag"], {}),
+            "config 3 ring chamfer on a 2 x 2 dp x sp process mesh": (
+                inputs6["case3"], {"batch_axis": "dp"}),
+        },
+    }
+    t0 = time.perf_counter()
+    ref = procs_reference(inputs, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"inputs": _to(inputs, torch.device("cpu")), "ref": ref},
+                   os.path.join(tmp, "phase7.pt"))
+        ctx = torch.multiprocessing.start_processes(
+            procs_worker, args=(tmp, str(dev)), nprocs=PROCS, join=False, start_method="spawn")
+        deadline = time.monotonic() + PROCS_JOIN_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise RuntimeError(f"phase 7: the workers did not finish within "
+                                   f"{PROCS_JOIN_S} s")
+        res = []
+        for r in range(PROCS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    print(f"phase 7: the ring across {PROCS} processes, one position each, all on "
+          f"cuda:0; transport: {res[0]['transport']} ({time.perf_counter() - t0:.1f} s "
+          "with the one-process reference)")
+    require(all(x["transport"] == res[0]["transport"] for x in res), "transports differ")
+    require(all(x["losses"] == res[0]["losses"] for x in res),
+            "config 5 losses differ between ranks")
+    require(all(x.get("chamfer_losses") == res[0].get("chamfer_losses") for x in res),
+            "chamfer losses differ between ranks")
+    for x in res:
+        prev = {}
+        for label, now in x["launches"].items():
+            print(f"  rank {x['rank']} launches, {label}: "
+                  f"{json.dumps({k: now[k] - prev.get(k, 0) for k in now})}")
+            prev = now
+        d5 = x["launches"]["config 5 ring chamfer, 5 steps"]
+        d16 = {k: v - d5[k] for k, v in
+               x["launches"]["+ north-star ring knn K=16 fwd+bwd"].items()}
+        require(d5["chamfer_nn_cuda"] == 5 * PROCS and d5["knn_topk_cuda"] == 0
+                and d5["scatter_add_rows"] > 0,
+                f"rank {x['rank']} config 5: {d5} ({PROCS} hops a forward)")
+        require(d16["knn_topk_cuda"] == PROCS and d16["scatter_add_rows"] == PROCS,
+                f"rank {x['rank']} north-star K=16: {d16} ({PROCS} hops each way)")
+    print(f"  config 5 losses (every rank) {res[0]['losses']}")
+    for key, e in res[0]["errors"].items():
+        worst = {k: (max(x["errors"][key][k] for x in res) if not isinstance(v, bool)
+                     else all(x["errors"][key][k] for x in res))
+                 for k, v in e.items()}
+        print(f"  {key}: every rank's blocks vs the one-process ring: {json.dumps(worst)}")
+    step = [max(x["step_ms"][i] for x in res) for i in range(len(res[0]["step_ms"]))]
+    knn = [max(x["knn16_ms"][i] for x in res) for i in range(len(res[0]["knn16_ms"]))]
+    print(f"  {PROCS} processes sharing one card, hops through the host: the "
+          f"protocol's cost, not a scaling figure; {gpu_line()}")
+    print(f"    config 5 chamfer fwd+bwd step ms (max over ranks) "
+          f"{[round(t, 3) for t in step]}, median after warm-up "
+          f"{statistics.median(step[1:]):.3f}; phase 6's one-process ring "
+          f"{times6['config 5 chamfer 16 x 100k fwd+bwd'][0]:.3f}")
+    print(f"    north-star knn K=16 fwd+bwd ms (max over ranks) "
+          f"{[round(t, 3) for t in knn]}, median {statistics.median(knn):.3f}; "
+          f"phase 6's one-process ring {times6['north-star knn K=16 fwd+bwd'][0]:.3f}")
+    for key, label in (("hop", "config 5 chamfer forward"),
+                       ("hop_knn", "north-star knn forward")):
+        hop = [max(x[f"{key}_ms"][i] for x in res) for i in range(len(res[0][f"{key}_ms"]))]
+        gb = res[0][f"{key}_bytes"] / 1e9
+        print(f"    one hop of the {label} ({res[0][f'{key}_bytes']} bytes a rank each "
+              f"way), ms (max over ranks) {[round(t, 3) for t in hop]}, median "
+              f"{statistics.median(hop):.3f} ({gb / statistics.median(hop) * 1e3:.3f} "
+              f"GB/s a rank)")
+    return res[0]["launches"]["+ north-star ring knn K=100 fwd"]
 
 
 def main() -> int:
@@ -1661,7 +2015,10 @@ def main() -> int:
     phase5(cases, plain_path, note_err)
 
     # ---------------- phase 6: the ring layer ----------------
-    ring_launches, _ = phase6(T, rng, plain_path)
+    ring_launches, ring_times, ring_inputs = phase6(T, rng, plain_path)
+
+    # ---------------- phase 7: the ring across processes ----------------
+    procs_launches = phase7(ring_inputs, ring_times, dev)
 
     # ---------------- kernel times at the main path's shapes ----------------
     records = []
@@ -1851,12 +2208,14 @@ def main() -> int:
           "r=0.2; fps_batched 32 x 4096 (ragged) K=512; fps_resident 1 x "
           "1,000,000 K=1024; fps_streaming 1 x 4,000,000 K=512; all D=3")
 
-    # The ring's launches of the three kernels its hops run (phase 6).
+    # The ring's launches of the three kernels its hops run (phase 6), and
+    # rank 0's on the ring across processes (phase 7).
     for rec in records:
         wrapper = {"knn_topk": "knn_topk_cuda", "chamfer_nn_bidir": "chamfer_nn_cuda",
                    "scatter_add_rows": "scatter_add_rows"}.get(rec["name"])
         if wrapper:
             rec["ring_launches"] = ring_launches[wrapper]
+            rec["procs_launches"] = procs_launches[wrapper]
     print(json.dumps({"kernels": records}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

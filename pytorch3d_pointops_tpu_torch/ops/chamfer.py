@@ -144,6 +144,34 @@ def _nn_bidirectional(x, y, x_lengths, y_lengths, norm):
     return (d1, i1), (d2, i2)
 
 
+class _LocalSums:
+    """How a direction's terms reduce over its points and the batch: over
+    the points and clouds this process holds, which are all of them. The
+    ring across processes passes one that also sums across ranks
+    (``parallel/ring.py``), so the option matrix stays in one copy.
+    ``first_row`` is the global index of the first point held, for the
+    lengths mask; ``batch_parts`` the number of batch blocks."""
+
+    first_row = 0
+    batch_parts = 1
+
+    def points(self, t):
+        """Per-cloud sums of (N, P) terms."""
+        return t.sum(dim=1)
+
+    def points_max(self, t):
+        """Per-cloud maxima of (N, P) terms; amax, as jnp.max: a tied
+        maximum's gradient is split evenly."""
+        return t.amax(dim=1)
+
+    def batch(self, t):
+        """The sum over the batch of an (N,) tensor."""
+        return t.sum()
+
+
+_LOCAL_SUMS = _LocalSums()
+
+
 def _chamfer_distance_single_direction(
     x,
     y,
@@ -158,13 +186,13 @@ def _chamfer_distance_single_direction(
     feature_names=None,
     nn=None,
     gather_fn=None,
+    sums: _LocalSums = _LOCAL_SUMS,
 ):
     """One direction of the loss. ``nn`` optionally carries a precomputed
     (dists (N, P1), idx (N, P1)) K=1 result from the bidirectional pass.
     ``gather_fn`` replaces the neighbour-feature gather (``knn_gather``'s
-    signature), as in the JAX package. The port's ring chamfer keeps the
-    default: its one process holds the whole features, so a ring gather
-    would fetch the same rows at a higher cost."""
+    signature), as in the JAX package: the ring across processes passes its
+    ring gather. ``sums`` reduces over the points and the batch."""
     if gather_fn is None:
         gather_fn = knn_gather
     if feature_names and x_features is not None and y_features is not None:
@@ -182,7 +210,8 @@ def _chamfer_distance_single_direction(
     )
 
     N, P1, D = x.shape
-    x_mask = torch.arange(P1, device=x.device)[None] >= x_lengths[:, None]
+    rows = torch.arange(sums.first_row, sums.first_row + P1, device=x.device)
+    x_mask = rows[None] >= x_lengths[:, None]
     if y.shape[0] != N or y.shape[2] != D:
         raise ValueError("y does not have the correct shape.")
     if weights is not None:
@@ -190,7 +219,7 @@ def _chamfer_distance_single_direction(
             raise ValueError("weights must be of shape (N,).")
         if bool((weights < 0).any()):
             raise ValueError("weights cannot be negative.")
-        if float(weights.sum()) == 0.0:
+        if float(sums.batch(weights)) == 0.0:
             # Zero-sum early-out: zero losses of the shapes the normal path
             # gives, with the gradient to x kept.
             if point_reduction is None:
@@ -229,12 +258,11 @@ def _chamfer_distance_single_direction(
             cham_features_x[name] = fd
 
     if point_reduction == "max":
-        # amax, as jnp.max: a tied maximum's gradient is split evenly.
-        cham_x = cham_x.amax(dim=1)
+        cham_x = sums.points_max(cham_x)
     elif point_reduction is not None:
-        cham_x = cham_x.sum(dim=1)
+        cham_x = sums.points(cham_x)
         if return_features:
-            cham_features_x = {k: v.sum(dim=1) for k, v in cham_features_x.items()}
+            cham_features_x = {k: sums.points(v) for k, v in cham_features_x.items()}
         if point_reduction == "mean":
             x_lengths_clamped = torch.clamp(x_lengths, min=1)
             cham_x = cham_x / x_lengths_clamped
@@ -275,18 +303,19 @@ def _combine_directions(
     return loss, loss_features
 
 
-def _apply_batch_reduction(cham_x, cham_features_x, weights, batch_reduction):
+def _apply_batch_reduction(cham_x, cham_features_x, weights, batch_reduction,
+                           sums: _LocalSums = _LOCAL_SUMS):
     if batch_reduction is None:
         return (cham_x, cham_features_x)
-    N = cham_x.shape[0]
-    cham_x = cham_x.sum()
+    N = cham_x.shape[0] * sums.batch_parts
+    cham_x = sums.batch(cham_x)
     if cham_features_x is not None:
-        cham_features_x = {k: v.sum() for k, v in cham_features_x.items()}
+        cham_features_x = {k: sums.batch(v) for k, v in cham_features_x.items()}
     if batch_reduction == "mean":
         if weights is None:
             div = max(N, 1)
         else:
-            wsum = weights.sum()
+            wsum = sums.batch(weights)
             div = torch.where(wsum == 0.0, 1.0, wsum)
         cham_x = cham_x / div
         if cham_features_x is not None:

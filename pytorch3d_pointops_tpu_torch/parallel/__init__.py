@@ -2,12 +2,18 @@
 chamfer, and multi-process helpers; the port of
 ``pytorch3d_pointops_tpu/parallel``.
 
-One process drives a mesh of devices (several cards, or several shards on
-one card) and runs the ring's hops itself, moving shards between devices
-with peer copies. A ring that spans processes (one process a card, hops as
-NCCL send/recv, as a multi-host config needs) is not here: it cannot run or
-be checked on one card, and the single-process ring is what the port's
-checks drive. ``multihost`` joins processes and moves slabs between them.
+The ring runs on either of two meshes:
+
+* ``make_mesh``: one process drives a mesh of its devices (several cards,
+  or several shards on one card) and runs every position's hops itself,
+  moving shards between devices with peer copies;
+* ``multihost.process_mesh``: one process a card (``torchrun``), each
+  holding only its own blocks and driving its own position, every hop a
+  ``torch.distributed`` send to the next rank and receive from the previous
+  one (NCCL, or gloo staged through the host), the chamfer's sums taken
+  across ranks.
+
+``multihost`` joins the processes and moves blocks and slabs between them.
 """
 
 from . import multihost

@@ -134,11 +134,39 @@ transport, each rank's launches, the step's wall ms (the maximum over
 ranks) beside phase 6's and one hop's transfer ms: four processes sharing
 one card, hops through the host, the protocol's cost and not a scaling
 figure. A failed worker or check, or workers still running after 300 s,
-fails the script. The line before the last is one JSON object with a
-record per kernel (the three kernels the rings run also carry
-``ring_launches`` and rank 0's ``procs_launches``); the last line is
-``{"ok": true, "device": {...}}``. Any failed check raises, and the script
-exits non-zero without that line. Without CUDA it exits 1 at once.
+fails the script.
+
+Phase 8 runs the port's eight examples (``pytorch3d_pointops_tpu_torch/
+examples``) on the card, each ``main(device="cuda")`` with every launch
+counter set to 0 just before and read just after, and requires each to
+launch the kernels it runs (``EXAMPLE_KERNELS``); their own prints go to
+``build/chip_smoke_examples.log``. ``knn_and_chamfer``,
+``fps_and_ball_query``, ``covariances_demo`` and ``ring_parallel`` run
+again inside ``plain_path()``: indices equal, values within 1e-5 of their
+largest entry, and the outputs of the 100- and 50-step SGD loops within
+1e-4 (rounding drifts apart over the steps). ``performance`` holds each
+kernel it times against its plain twin on the same card tensors at every
+size (KNN K=16 up to P = 50,000, ball query and FPS up to 20,000, the last
+on the grid kernel): indices equal, values within 1e-5 of their largest
+entry. Its figures are printed beside the card's name and power limit, and
+its ``knn_points`` (K=32) call at P = 50,000 must peak under 1 GB.
+
+Phase 9 runs ``sweep.py``'s first 200 seeded cases (every kernel's public
+route at small shapes: ragged lengths with 0, K up to P2 + 7, grid and
+duplicated clouds, D in {1, 2, 3, 5}, both norms, the chamfer option
+matrix) on CUDA tensors against the plain twins on CPU copies (indices
+equal, values within 1e-5, gradients within 1e-5 of their largest entry)
+and against the port's host library (``native.py``, built from
+``csrc/pointops_cpu.cpp`` with ``g++``); a failure names the case's seed,
+shapes and parameters.
+
+The line before the last is one JSON object with a record per kernel
+(every record carries ``examples_launches``, its launches over phase 8,
+and ``sweep_cases``, the phase 9 cases that launched it; the three kernels
+the rings run also carry ``ring_launches`` and rank 0's
+``procs_launches``); the last line is ``{"ok": true, "device": {...}}``.
+Any failed check raises, and the script exits non-zero without that line.
+Without CUDA it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -1329,6 +1357,136 @@ def phase7(inputs6, times6, dev):
     return res[0]["launches"]["+ north-star ring knn K=100 fwd"]
 
 
+# Phase 8: the kernels each example must launch on the card (by wrapper);
+# the examples with none run for their checks.
+EXAMPLE_KERNELS = {
+    "pointclouds_basics": (),
+    "packed_padded_walkthrough": (),
+    "sample_pdf_demo": (),
+    "knn_and_chamfer": ("knn_topk_cuda", "chamfer_nn_cuda", "scatter_add_rows",
+                        "scatter_add_k1"),
+    "fps_and_ball_query": ("fps_batched", "ball_query_cuda", "scatter_add_rows"),
+    "covariances_demo": ("knn_topk_cuda",),
+    "ring_parallel": ("knn_topk_cuda", "chamfer_nn_cuda", "scatter_add_rows"),
+    "performance": ("knn_topk_cuda", "ball_query_cuda", "fps_batched", "fps_resident"),
+}
+# Run again through the plain twins, on the card.
+EXAMPLES_PLAIN = ("knn_and_chamfer", "fps_and_ball_query", "covariances_demo",
+                  "ring_parallel")
+# The SGD loops' outputs (keys "sgd_*"): rounding drifts apart over the 100
+# (knn_and_chamfer) or 50 (ring_parallel) steps, so 1e-4 relative there.
+SGD_TOL = 1e-4
+EXAMPLE_PEAK_MB = 1024
+SWEEP_CASES = 200
+
+
+def figures(out: dict, prefix: str = "") -> dict:
+    """An example's returned numbers as flat ``{"key.subkey": array}``."""
+    flat = {}
+    for k, v in out.items():
+        if isinstance(v, dict):
+            flat.update(figures(v, f"{prefix}{k}."))
+        else:
+            flat[f"{prefix}{k}"] = np.asarray(v)
+    return flat
+
+
+def phase8(plain_path, wrappers, dev):
+    """The port's eight examples on the card, each ``main(device=dev)``
+    with every launch counter set to 0 just before and read just after;
+    four of them again through the plain twins. Their own prints go to
+    ``build/chip_smoke_examples.log``. Returns each wrapper's launches
+    summed over the examples."""
+    import importlib
+    import io
+
+    from pytorch3d_pointops_tpu_torch import sweep
+
+    log = io.StringIO()
+
+    def run(name):
+        mod = importlib.import_module(f"pytorch3d_pointops_tpu_torch.examples.{name}")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            print(f"===== {name} =====")
+            out = mod.main(device=dev, seed=0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    t_all = time.perf_counter()
+    results, totals = {}, {w.__name__: 0 for w in wrappers}
+    for name, needs in EXAMPLE_KERNELS.items():
+        for w in wrappers:
+            w.launches = 0
+        results[name], secs = run(name)
+        launches = {w.__name__: w.launches for w in wrappers if w.launches}
+        for k, v in launches.items():
+            totals[k] += v
+        print(f"  {name}: {secs:.1f} s, launches {json.dumps(launches)}")
+        require(all(launches.get(k, 0) > 0 for k in needs),
+                f"example {name} did not launch {[k for k in needs if not launches.get(k)]}")
+    for name in EXAMPLES_PLAIN:
+        with plain_path():
+            plain, secs = run(name)
+        # Integers equal; floats within TOL (the SGD loops' within SGD_TOL)
+        # of their largest entry.
+        worst = sweep.compare(f"example {name}", figures(results[name]), figures(plain),
+                              "kernels vs plain twins", scaled={"sgd_": SGD_TOL, "": TOL})
+        print(f"  {name} through the plain twins ({secs:.1f} s): indices equal, the "
+              f"largest difference {worst:.3g}")
+    perf = results["performance"]
+    held = perf["kernel_vs_plain"]
+    ops = ", ".join(sorted({h["op"] for h in held}))
+    print(f"  performance: {len(held)} kernel calls ({ops}) equal to their plain twins on "
+          f"the same inputs, the largest difference "
+          f"{max(h['max_abs_err'] for h in held):.3g}")
+    largest = max(perf["peak_mb"])
+    print(f"  performance figures ({gpu_line()}): {json.dumps(perf)}")
+    require(perf["peak_mb"][largest] < EXAMPLE_PEAK_MB,
+            f"knn_points K=32 at P={largest} peaked at {perf['peak_mb'][largest]:.1f} MB")
+    from pytorch3d_pointops_tpu_torch import _build
+
+    with open(os.path.join(_build.BUILD_DIR, "chip_smoke_examples.log"), "w") as f:
+        f.write(log.getvalue())
+    print(f"phase 8: the eight examples on the card in {time.perf_counter() - t_all:.1f} s; "
+          f"launches {json.dumps(totals)}")
+    return totals
+
+
+def phase9(wrappers, dev):
+    """The seeded sweep (``sweep.py``): ``SWEEP_CASES`` cases on CUDA
+    tensors against the plain twins on CPU copies of the same inputs and
+    against the host library. Returns, for each wrapper, the number of
+    cases that launched it."""
+    from pytorch3d_pointops_tpu_torch import native, sweep
+
+    t0 = time.perf_counter()
+    native.load()
+    built = time.perf_counter() - t0
+    cases = {w.__name__: 0 for w in wrappers}
+    worst, held = {}, 0
+    for case in sweep.cases(SWEEP_CASES):
+        for w in wrappers:
+            w.launches = 0
+        got = sweep.run_case(case, dev)
+        for w in wrappers:
+            cases[w.__name__] += w.launches > 0
+        err = sweep.compare(case, got, sweep.run_case(case, "cpu"))
+        worst[case.family] = max(worst.get(case.family, 0.0), err)
+        held += sweep.check_native(case, got)
+    print(f"phase 9: {SWEEP_CASES} seeded sweep cases on the card in "
+          f"{time.perf_counter() - t0:.1f} s (host library built in {built:.1f} s): "
+          f"every one equal to the plain twins (indices equal, values within {TOL}, "
+          f"gradients within {TOL} of their largest entry), {held} of them to the host "
+          f"library; largest value differences by family {json.dumps(worst)}; cases "
+          f"that launched each kernel {json.dumps(cases)}")
+    require(all(cases[w.__name__] for w in wrappers
+                if w.__name__ not in ("fps_resident", "fps_streaming")),
+            f"a kernel the sweep covers never ran: {cases}")
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2020,6 +2178,13 @@ def main() -> int:
     # ---------------- phase 7: the ring across processes ----------------
     procs_launches = phase7(ring_inputs, ring_times, dev)
 
+    # ---------------- phases 8 and 9: the examples, the seeded sweep ----------------
+    wrappers = (kk.knn_topk_cuda, kc.chamfer_nn_cuda, ks.scatter_add_rows,
+                ks.scatter_add_k1, kb.ball_query_cuda, kf.fps_batched, kf.fps_resident,
+                kf.fps_streaming)
+    examples_launches = phase8(plain_path, wrappers, dev)
+    sweep_cases = phase9(wrappers, dev)
+
     # ---------------- kernel times at the main path's shapes ----------------
     records = []
     full = T(np.array([100000]), torch.int64)
@@ -2209,13 +2374,17 @@ def main() -> int:
           "1,000,000 K=1024; fps_streaming 1 x 4,000,000 K=512; all D=3")
 
     # The ring's launches of the three kernels its hops run (phase 6), and
-    # rank 0's on the ring across processes (phase 7).
+    # rank 0's on the ring across processes (phase 7); every kernel's
+    # launches over the examples (phase 8) and the sweep's cases that
+    # launched it (phase 9).
     for rec in records:
         wrapper = {"knn_topk": "knn_topk_cuda", "chamfer_nn_bidir": "chamfer_nn_cuda",
-                   "scatter_add_rows": "scatter_add_rows"}.get(rec["name"])
-        if wrapper:
+                   "ball_query": "ball_query_cuda"}.get(rec["name"], rec["name"])
+        if rec["name"] in ("knn_topk", "chamfer_nn_bidir", "scatter_add_rows"):
             rec["ring_launches"] = ring_launches[wrapper]
             rec["procs_launches"] = procs_launches[wrapper]
+        rec["examples_launches"] = examples_launches[wrapper]
+        rec["sweep_cases"] = sweep_cases[wrapper]
     print(json.dumps({"kernels": records}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

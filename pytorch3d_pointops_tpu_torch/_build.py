@@ -1,4 +1,5 @@
-"""Builds the CUDA kernels in ``csrc/`` and loads them with ``ctypes``.
+"""Builds the CUDA kernels and the host library in ``csrc/`` and loads them
+with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc`` into ``build/lib<name>_<hash>.so`` at the repository root, named by a
@@ -8,6 +9,14 @@ unchanged one is reused. Nothing builds at import: the first kernel launch
 source, all started together. Every C entry point takes pointers and the
 CUDA stream as ``void*`` and returns its ``cudaError_t``; ``check`` raises on
 anything but success.
+
+The host library ``csrc/pointops_cpu.cpp`` (``native.py``) compiles with the
+C++ compiler (``$CXX``, else ``g++``) into ``build/libpointops_cpu_<hash>.so``
+at its first ``load_host()``, never from ``build_all``: a machine that only
+runs kernels starts no ``g++``. Its flags hold ``-march=native``, so the hash
+also covers the machine, the compiler's version and the instruction sets that
+``-march=native`` turns on there: a ``build/`` copied to another CPU builds
+anew instead of loading code that CPU may not run.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -31,6 +41,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
 )
+
+# The JAX package's flags for the same source: the two builds are bit-equal.
+HOST_SOURCE = "pointops_cpu"
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-march=native", "-pthread")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -98,6 +112,55 @@ def load(name: str) -> ctypes.CDLL:
                 build_all()
             _LIBS[name] = ctypes.CDLL(lib_path(name))
         return _LIBS[name]
+
+
+def _cxx() -> str:
+    cxx = os.environ.get("CXX", "g++")
+    found = shutil.which(cxx)
+    if not found:
+        raise ImportError(f"the host library needs a C++ compiler: {cxx!r} not found")
+    return found
+
+
+def host_lib_path() -> str:
+    """Where the host library is built: a hash of its source, the flags, the
+    machine, the compiler's version and the macros ``-march=native`` defines
+    (the instruction sets it compiles for)."""
+    cxx = _cxx()
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                             check=True).stdout
+    isa = subprocess.run([cxx, "-march=native", "-dM", "-E", "-x", "c++", os.devnull],
+                         capture_output=True, text=True, check=True).stdout
+    with open(os.path.join(CSRC_DIR, f"{HOST_SOURCE}.cpp"), "rb") as f:
+        digest = hashlib.sha256(f.read())
+    for part in (" ".join(CXX_FLAGS), platform.machine(), version, isa):
+        digest.update(part.encode())
+    return os.path.join(BUILD_DIR, f"lib{HOST_SOURCE}_{digest.hexdigest()[:16]}.so")
+
+
+def load_host() -> ctypes.CDLL:
+    """The loaded host library, compiled at the first call. Several processes
+    may build at once: each writes its own temporary file and moves it into
+    place. Raises ``ImportError`` when there is no compiler or it fails."""
+    with _LOCK:
+        if HOST_SOURCE not in _LIBS:
+            try:
+                path = host_lib_path()
+                if not os.path.exists(path):
+                    os.makedirs(BUILD_DIR, exist_ok=True)
+                    tmp = f"{path}.tmp{os.getpid()}"
+                    subprocess.run(
+                        [_cxx(), *CXX_FLAGS,
+                         os.path.join(CSRC_DIR, f"{HOST_SOURCE}.cpp"), "-o", tmp],
+                        check=True, capture_output=True, text=True,
+                    )
+                    os.replace(tmp, path)
+                _LIBS[HOST_SOURCE] = ctypes.CDLL(path)
+            except subprocess.CalledProcessError as e:
+                raise ImportError(f"the host library did not build: {e.stderr}") from e
+            except OSError as e:
+                raise ImportError(f"the host library did not build or load: {e}") from e
+        return _LIBS[HOST_SOURCE]
 
 
 def check(err: int, what: str) -> None:

@@ -7,7 +7,7 @@ on ties the argmax keeps the first maximal index. idx is padded with -1 past
 index is 0 unless ``random_start_point``. The selection carries no
 gradient: the sampled points are differentiable through ``masked_gather``.
 
-On CUDA tensors ``_route`` sends each batch to one of the three FPS
+On CUDA tensors ``route`` sends each batch to one of the three FPS
 kernels of ``kernels/fps.py`` by cloud size; on CPU tensors
 every route runs the plain twin.
 """
@@ -39,7 +39,7 @@ def _normalize_K(K, N: int, device) -> Tuple[torch.Tensor, int]:
     return K_t, max(max_K, 0)
 
 
-def _route(points: torch.Tensor):
+def route(points: torch.Tensor):
     """The FPS entry point for this batch: one block per cloud up to the
     block cap of ``fps_limits`` ((D + 1) * 4 bytes a point of one block's
     shared memory), else the whole card with the cloud on chip while it
@@ -111,7 +111,7 @@ def sample_farthest_points(
         points, lengths, K, random_start_point, generator
     )
     with torch.no_grad():
-        idx = _route(points)(points.detach(), lengths, K_t, starts, max_K)
+        idx = route(points)(points.detach(), lengths, K_t, starts, max_K)
     return masked_gather(points, idx), idx
 
 

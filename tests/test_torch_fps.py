@@ -294,8 +294,8 @@ def test_grid_plan_refuses_too_many_blocks():
 def test_route_and_wrappers_launch_or_raise(monkeypatch):
     """On the CPU every route runs the plain twin; a tensor that is neither
     CPU nor CUDA raises, and no CPU tensor reaches a kernel. On the card,
-    ``_route`` follows the capacities ``fps_limits`` reports."""
-    assert ofps._route(torch.zeros((2, 10, 3))) is kf.fps_batched
+    ``route`` follows the capacities ``fps_limits`` reports."""
+    assert ofps.route(torch.zeros((2, 10, 3))) is kf.fps_batched
     limits = {3: (14464, 2433024), 16: (3403, 405504)}
     monkeypatch.setattr(kf, "fps_limits", lambda D, device: limits[D])
     for D, (block_max, resident_max) in limits.items():
@@ -306,7 +306,7 @@ def test_route_and_wrappers_launch_or_raise(monkeypatch):
                         (6_000_000, kf.fps_streaming)):
             card = types.SimpleNamespace(shape=(2, P, D), is_cuda=True,
                                          device="cuda:0")
-            assert ofps._route(card) is want, (D, P)
+            assert ofps.route(card) is want, (D, P)
     meta = torch.zeros((1, 4, 3), device="meta")
     ml = torch.zeros((1,), dtype=torch.int64, device="meta")
     for fn in (kf.fps_batched, kf.fps_resident, kf.fps_streaming):
@@ -378,7 +378,7 @@ def test_route_keeps_the_block_cap(D, monkeypatch):
     assert kf.fps_limits(D, "cuda:0")[0] == cap
     for P, want in ((cap, kf.fps_batched), (cap + 1, kf.fps_resident)):
         card = types.SimpleNamespace(shape=(4, P, D), is_cuda=True, device="cuda:0")
-        assert ofps._route(card) is want, (D, P)
+        assert ofps.route(card) is want, (D, P)
 
 
 @pytest.mark.parametrize("D", [3, 16])

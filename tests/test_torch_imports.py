@@ -1,12 +1,17 @@
-"""The PyTorch port stands alone: importing it, or chip_smoke.py, loads
-neither JAX nor the JAX package, and it exports every public name of the
-JAX package and of its ``parallel`` layer."""
+"""The PyTorch port stands alone: importing it (its host library, sweep
+and examples included), or chip_smoke.py, loads neither JAX nor the JAX
+package, and it exports every public name of the JAX package and of its
+``parallel`` layer, and has each of its examples."""
 
 import os
 import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLES = sorted(
+    f[:-3] for f in os.listdir(os.path.join(REPO, "pytorch3d_pointops_tpu_torch", "examples"))
+    if f.endswith(".py") and f != "__init__.py"
+)
 
 _PROBE = """
 import sys
@@ -48,6 +53,10 @@ def test_port_imports_no_jax():
         "pytorch3d_pointops_tpu_torch.structures.pointclouds",
         "pytorch3d_pointops_tpu_torch.convert",
         "pytorch3d_pointops_tpu_torch._build",
+        "pytorch3d_pointops_tpu_torch.native",
+        "pytorch3d_pointops_tpu_torch.sweep",
+        "pytorch3d_pointops_tpu_torch.examples",
+        *(f"pytorch3d_pointops_tpu_torch.examples.{name}" for name in EXAMPLES),
         "chip_smoke",
     ]
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -56,6 +65,12 @@ def test_port_imports_no_jax():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_port_has_every_example_of_the_jax_package():
+    jax_examples = sorted(f[:-3] for f in os.listdir(os.path.join(REPO, "examples"))
+                          if f.endswith(".py"))
+    assert EXAMPLES == jax_examples
 
 
 def test_port_exports_the_jax_names_it_ports():

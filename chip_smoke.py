@@ -29,10 +29,11 @@ block kernel under every block plan at each plan's capacity - 1, + 0 and
 17), the FPS grid kernel at and around each capacity of its launch plan
 (the largest slice with coordinates in registers, resident and register
 caps +- 1, 6M points, D=16 and D=1 past their caps), and the
-scatter: its radix sort (``sort_plan``) equal to the stable argsort
-(``segment_plan``) at one, two and three passes, on uniform targets and on
-targets that crowd 16 rows, and both entry points run twice and compared
-bit for bit with each other and with the plain twin on CPU copies. Phase 3
+scatter: both entry points under the plan ``scatter_plan`` picks (the bucket kernel alone, a one- and
+a two-pass partition; 2 to 33 channels) on uniform targets, on targets
+that crowd 16 rows and on targets all on one row, run twice and compared
+bit for bit with each other and with the plain twin on CPU copies, then a
+skewed input under every bucket size. Phase 3
 drives two main paths at
 full size through the public entry points, each with every launch counter
 set to 0 just before and read just after:
@@ -60,11 +61,18 @@ and times every kernel at the main path's shapes beside its plain twin, its
 bound and, for the scatter, ``index_add_``. Each timed launch is also held
 against its plain twin at that shape (indices equal, values within 1e-5;
 chamfer NN distances equal, in both norms)
-and the scatters run twice for bit-equality; each scatter's sort and
-segment sum are timed apart, launch by launch, as is a skewed scatter (one
-row of 100,000 entries), and config 2's backward scatters print their
-longest segment, and the FPS grid round's fixed cost is timed on a cloud of
-8 points a block, the block round's on 32 clouds of 512 points.
+and the scatters run twice for bit-equality and against the plain twin on
+CPU copies, with ``index_add_`` timed non-deterministic and deterministic;
+each scatter's launches are timed apart (CUDA events between them) and
+its device operations counted in a CUDA graph of one call, one for each
+step of its plan (at most 4; 1 for one config 1 cloud, whose rows fit one
+bucket), as are config 2's three backward scatters and
+config 1's, a skewed scatter (one row of 100,000 of 200,000 entries) and
+one with every entry on one row through
+both entry points, and the K=1 scatters of a config 3 step with its source
+collapsed to a point beside the normal step's, each with its longest row;
+the FPS grid round's fixed cost is timed on a cloud of 8 points a block,
+the block round's on 32 clouds of 512 points.
 
 Phase 4 holds the KNN kernel's Morton sorting (``sort_queries``,
 ``sort_candidates``, both) bit-equal to the unsorted kernel in both norms
@@ -79,8 +87,8 @@ times; drives config 4 (1M x 1M KNN, K=16, fwd+bwd through
 against unsorted, the step against the plain path on the card (every
 query's indices and distances, both gradients), the backward's 16M-entry
 scatter against the plain twin (bit-equal on CPU copies), with the
-forward, backward and scatter times; and runs ``packed_to_padded``,
-``padded_to_packed`` (with gradients) and ``sample_pdf`` on the card
+forward, backward and scatter times, the scatter's launch by launch; and
+runs ``packed_to_padded``, ``padded_to_packed`` (with gradients) and ``sample_pdf`` on the card
 against CPU tensors.
 
 Phase 5 checks the KNN kernel's kth-bound seeding: the north-star
@@ -237,26 +245,62 @@ def wall_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def scatter_steps(idx, contrib, P2, reps=10):
-    """Median CUDA-event time in ms of each step of one scatter call: the
-    zeroing of its counters, the histogram, each radix pass, the segment
-    sum."""
+@contextlib.contextmanager
+def recorded_scatters():
+    """Records the (idx, contrib, P2) of every scatter launched inside."""
     from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
 
-    passes = ks.radix_digits(idx.shape[0], idx.shape[1], P2)[0]
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(passes + 4)]
-    for e in events:
-        e.record()
-    torch.cuda.synchronize()
-    times = [[] for _ in range(passes + 3)]
-    for _ in range(reps):
-        ks._launch(idx, contrib, P2, events=events)
-        torch.cuda.synchronize()
-        for i, t in enumerate(times):
-            t.append(events[i].elapsed_time(events[i + 1]))
-    names = ["zero", "histogram", *(f"pass {p + 1}" for p in range(passes)),
-             "segment sum"]
-    return {n: statistics.median(t) for n, t in zip(names, times)}
+    calls = []
+    launch = ks._launch
+
+    def recording(idx, contrib, P2, events=None, plan=None):
+        calls.append((idx, contrib, P2))
+        return launch(idx, contrib, P2, events, plan)
+
+    ks._launch = recording
+    try:
+        yield calls
+    finally:
+        ks._launch = launch
+
+
+def hold_scatter(wrapper, idx, contrib, P2, what):
+    """One scatter entry point on the card, bit-equal from run to run and to
+    the plain twin on CPU copies (which sums each row in entry order, as
+    the kernels do); returns its output."""
+    from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
+
+    out = wrapper(idx, contrib, P2)
+    require(torch.equal(out, wrapper(idx, contrib, P2)),
+            f"{what}: not bit-equal run to run")
+    require(torch.equal(out.cpu(), ks.scatter_add_plain(idx.cpu(), contrib.cpu(), P2)),
+            f"{what}: not bit-equal to the CPU twin")
+    return out
+
+
+def scatter_line(idx, contrib, P2, reps=10):
+    """A scatter's time (CUDA events, median of ``reps``), its steps' times
+    (``launch_steps``) and its longest row, as one line of text, and the
+    steps. The steps must be the device operations that one call of
+    ``scatter_add_rows`` enqueues, as a CUDA graph captures them
+    (``device_ops``): the zeroing a memset, every other step a kernel."""
+    from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
+    from pytorch3d_pointops_tpu_torch.tune_scatter import device_ops, launch_steps
+
+    N, E, C = contrib.shape
+    rows = (idx + torch.arange(N, device=idx.device)[:, None] * P2)[idx >= 0]
+    longest = int(torch.bincount(rows).max()) if rows.numel() else 0
+    ms = cuda_ms(lambda: ks.scatter_add_rows(idx, contrib, P2), reps=reps)
+    steps = launch_steps(idx, contrib, P2, reps=reps)
+    ops = device_ops(lambda: ks.scatter_add_rows(idx, contrib, P2))
+    expected = ["memset" if step == "zero" else "kernel" for step in steps]
+    require(sorted(ops) == sorted(expected),
+            f"scatter {N} x {E} into {P2}: the call enqueued {ops}, its steps "
+            f"{list(steps)}")
+    return (f"{N} x {E} entries ({int((idx < 0).sum())} skipped, longest row "
+            f"{longest}) into {P2} rows x {C}: {ms:.4f} ms, {len(ops)} device "
+            f"operations ({', '.join(ops)}; a CUDA graph of one call), per launch (ms) "
+            f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}"), steps
 
 
 def bound(bytes_moved: float, ops: float):
@@ -457,20 +501,12 @@ def phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,
     require(torch.allclose(g1, g1p, rtol=TOL, atol=TOL)
             and torch.allclose(g2, g2p, rtol=TOL, atol=TOL),
             f"config 4: gradients differ from the plain path (max abs err {gerr4})")
-    # The backward's scatter at this shape, 16M entries into 1M rows: its
-    # radix sort equal to the stable argsort, bit-equal run to run and to
-    # the plain twin on CPU copies, within TOL of the plain twin on the card.
+    # The backward's scatter at this shape, 16M entries into 1M rows:
+    # bit-equal run to run and to the plain twin on CPU copies, within TOL
+    # of the plain twin on the card.
     idx4 = out4.idx.reshape(1, -1)
     contrib4 = torch.randn((1, idx4.shape[1], 3), device=dev)
-    plan4, ref_plan4 = ks.sort_plan(idx4, 1_000_000), ks.segment_plan(idx4, 1_000_000)
-    require(torch.equal(plan4[0], ref_plan4[0]) and torch.equal(plan4[1], ref_plan4[1]),
-            "config 4: sort_plan differs from segment_plan")
-    s4 = ks.scatter_add_rows(idx4, contrib4, 1_000_000)
-    require(torch.equal(s4, ks.scatter_add_rows(idx4, contrib4, 1_000_000)),
-            "config 4 scatter: not bit-equal run to run")
-    require(torch.equal(s4.cpu(), ks.scatter_add_plain(idx4.cpu(), contrib4.cpu(),
-                                                       1_000_000)),
-            "config 4 scatter: not bit-equal to the CPU twin")
+    s4 = hold_scatter(ks.scatter_add_rows, idx4, contrib4, 1_000_000, "config 4 scatter")
     serr4 = (s4 - ks.scatter_add_plain(idx4, contrib4, 1_000_000)).abs().max().item()
     note_err("rows", serr4)
     require(serr4 <= TOL, f"config 4 scatter: err {serr4}")
@@ -481,13 +517,13 @@ def phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,
     with torch.no_grad():
         fwd["knn_points"] = wall_ms(lambda: ppt.knn_points(c4_p1, c4_p2, K=16), reps=3)
     step = wall_ms(lambda: knn_step(c4_p1, c4_p2, None, None, 16), reps=3)
-    scatter4 = cuda_ms(lambda: ks.scatter_add_rows(idx4, contrib4, 1_000_000), reps=3)
+    scatter4_line, _ = scatter_line(idx4, contrib4, 1_000_000, reps=3)
     print(f"  config 4 1M x 1M K=16: auto-sorted idx and dists equal to unsorted; the "
           f"step equal to the plain path's ({plain4_s:.1f} s): idx equal, dists max abs "
           f"err {derr4:.3g}, grads {gerr4[0]:.3g} / {gerr4[1]:.3g}; the scatter of "
           f"{idx4.shape[1]:,} entries bit-equal to the CPU twin, err {serr4:.3g} on the "
           f"card; forward ms {json.dumps(fwd)}; fwd+bwd {step:.1f} ms (backward "
-          f"{step - fwd['knn_points']:.1f}); the scatter {scatter4:.2f} ms")
+          f"{step - fwd['knn_points']:.1f}); the scatter: {scatter4_line}")
 
     # packed/padded and sample_pdf on the card: equal to the same calls on CPU
     # tensors (the conversions and their gradients exactly; samples within
@@ -1505,6 +1541,7 @@ def main() -> int:
     from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
     from pytorch3d_pointops_tpu_torch.ops.knn import _apply_pad_conventions
     from pytorch3d_pointops_tpu_torch.profile_step import device_share
+    from pytorch3d_pointops_tpu_torch.tune_scatter import library_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1707,41 +1744,57 @@ def main() -> int:
     print(f"  knn tie cloud 20,000 x 20,000 K=16: bit-equal to plain under all "
           f"{len(plans)} plans (Q {sorted({p.queries for p in plans})}); the "
           f"wrapper picks {kk.plan_name(chosen)}")
-    # The scatter: its radix sort against the stable argsort at one, two and
-    # three passes (N * P2 of 2,000, 100,000 and 5,000,000 buckets), on
-    # uniform targets and on targets where half the entries share 16 rows;
-    # both entry points bit-equal run to run and to the plain twin on CPU
-    # copies (which sums each row in entry order, as the kernel does), and
-    # within TOL of the plain twin on the card (float atomics) where no row
-    # is long.
-    def hub_targets(N, E, P2):
-        hubs = rng.integers(0, P2, size=16)
-        return np.where(rng.uniform(size=(N, E)) < 0.5, rng.choice(hubs, size=(N, E)),
-                        rng.integers(-1, P2, size=(N, E)))
+    # The scatter: both entry points under the plan scatter_plan picks (the
+    # bucket kernel alone at 64 and 600 rows, a one-pass partition, a
+    # two-pass one past 2^21 rows; 6, 11 and 33 channels, a block taking
+    # up to 8) on uniform targets, on targets where half the entries share
+    # 16 rows and on targets all on one row, bit-equal run to run and to the
+    # plain twin on CPU copies (which sums each row in entry order, as the
+    # kernels do), and within TOL of the plain twin on the card (float
+    # atomics) where no row is long; then one skewed input under every
+    # bucket size the partition can take, from one row a bucket (the
+    # partition a full sort of the keys, in two passes) to 2^11 rows. A
+    # partition that lost, doubled or reordered an entry within its row
+    # would change a sum's bits.
+    def targets(N, E, P2, kind):
+        if kind == "one row":
+            return np.full((N, E), P2 // 2, dtype=np.int64)
+        idx = rng.integers(-1, P2, size=(N, E))
+        if kind == "hub":
+            hubs = rng.integers(0, P2, size=16)
+            idx = np.where(rng.uniform(size=(N, E)) < 0.5, rng.choice(hubs, size=(N, E)),
+                           idx)
+        return idx
 
-    for N, E, P2, C in ((3, 4097, 1000, 3), (1, 777, 64, 6), (2, 999, 300, 11),
-                        (2, 3000, 1000, 3), (4, 50000, 25000, 3),
-                        (5, 200000, 1_000_000, 3)):
-        for hub in (False, True):
-            idx = T(hub_targets(N, E, P2) if hub else rng.integers(-1, P2, size=(N, E)),
-                    torch.int64)
+    for N, E, P2, C, kinds in (
+        (3, 4097, 1000, 3, ("uniform", "hub")), (1, 777, 64, 6, ("uniform", "hub")),
+        (2, 999, 300, 11, ("uniform", "hub", "one row")),
+        (2, 3000, 1000, 3, ("uniform", "hub")), (2, 8000, 800, 3, ("uniform", "one row")),
+        (1, 16384, 2048, 8, ("uniform", "hub")), (1, 20000, 300, 33, ("uniform", "hub")),
+        (4, 50000, 25000, 3, ("uniform", "hub", "one row")),
+        (5, 200000, 1_000_000, 3, ("uniform", "hub")),
+        (1, 300000, 2**22 + 5, 2, ("uniform", "hub")),
+    ):
+        for kind in kinds:
+            idx = T(targets(N, E, P2, kind), torch.int64)
             contrib = T(rng.normal(size=(N, E, C)).astype(np.float32))
-            what = f"{N}x{E} P2={P2} C={C} hub={hub}"
-            plan, ref_plan = ks.sort_plan(idx, P2), ks.segment_plan(idx, P2)
-            require(torch.equal(plan[0], ref_plan[0]) and torch.equal(plan[1], ref_plan[1]),
-                    f"sort_plan {what} ({ks.radix_digits(N, E, P2)[0]} passes)")
-            cpu_ref = ks.scatter_add_plain(idx.cpu(), contrib.cpu(), P2)
+            what = f"{N}x{E} P2={P2} C={C} {kind} {ks.scatter_plan(N, E, P2, C)}"
             for key, wrapper in (("rows", ks.scatter_add_rows), ("k1", ks.scatter_add_k1)):
-                out1 = wrapper(idx, contrib, P2)
-                out2 = wrapper(idx, contrib, P2)
-                torch.cuda.synchronize()
-                require(torch.equal(out1, out2), f"scatter {key} {what}: not bit-equal")
-                require(torch.equal(out1.cpu(), cpu_ref),
-                        f"scatter {key} {what}: not bit-equal to the CPU twin")
-                if not hub:
+                out1 = hold_scatter(wrapper, idx, contrib, P2, f"scatter {key} {what}")
+                if kind == "uniform":
                     err = (out1 - ks.scatter_add_plain(idx, contrib, P2)).abs().max().item()
                     note_err(key, err)
                     require(err <= TOL, f"scatter {key} {what}: err {err}")
+    skew = T(targets(1, 300000, 100000, "uniform"), torch.int64)
+    skew[0, ::2] = 7
+    skew_c = torch.randn((1, 300000, 3), device=dev)
+    ref = hold_scatter(ks.scatter_add_rows, skew, skew_c, 100000, "skewed scatter")
+    for shift in range(ks._MAX_BUCKET_BITS + 1):
+        digit_bits = 17 - shift
+        passes = -(-digit_bits // 11)
+        plan = ks.Plan(shift, passes, -(-digit_bits // passes), 3)
+        require(torch.equal(ks._launch(skew, skew_c, 100000, plan=plan), ref),
+                f"skewed scatter under {plan}: differs from the picked plan")
 
     # Ball query: ragged lengths on both sides, one cloud fully masked; a
     # 1/8 grid whose radius (0.25 at D=3, 0.75 at D=16) squares exactly to
@@ -2124,40 +2177,37 @@ def main() -> int:
     require(rel2 <= TOL, f"config 2 loss disagrees with the plain path: {rel2}")
     require(gerr2 <= TOL * gscale2,
             f"config 2 gradients disagree with the plain path: {gerr2} vs {gscale2}")
-    # Config 2's backward scatters, recorded in one more step: each one's
-    # longest segment (the entries of its busiest target row, one thread's
-    # serial sum), its skipped entries and its time. Beside them, the ball
-    # gather's index as it was before its padded slots were skipped: every
-    # padded slot sent to row 0 of its cloud.
-    def longest_segment(idx, P2):
-        rows = (idx + torch.arange(idx.shape[0], device=dev)[:, None] * P2)[idx >= 0]
-        return int(torch.bincount(rows).max()) if rows.numel() else 0
-
-    calls = []
-    launch = ks._launch
-
-    def recording(idx, contrib, P2, events=None):
-        calls.append((idx, contrib, P2))
-        return launch(idx, contrib, P2, events)
-
-    ks._launch = recording
-    try:
+    # Config 2's backward scatters, recorded in one more step, config 1's
+    # and its first cloud's alone: each bit-equal to the CPU twin and run to
+    # run, with its longest row (one thread's serial adds), its skipped
+    # entries, its time and its device operations (at most 4; 1 for the one
+    # cloud, whose 8,000 entries and 800 rows take the bucket kernel alone,
+    # while config 1's 16,000 entries take the partition). Beside them, the
+    # ball gather's index as it was before its padded slots were skipped:
+    # every padded slot sent to row 0 of its cloud.
+    with recorded_scatters() as calls:
         group_step(pts2)
-    finally:
-        ks._launch = launch
     require(len(calls) == 3, f"config 2 backward made {len(calls)} scatters, not 3")
-    scatter_rows = ks.scatter_add_rows
-    for i, (idx, contrib, P2) in enumerate(calls):
-        print(f"  config 2 backward scatter {i}: {idx.shape[0]} x {idx.shape[1]} "
-              f"entries ({int((idx < 0).sum())} skipped) into {P2} rows, longest "
-              f"segment {longest_segment(idx, P2)}, "
-              f"{cuda_ms(lambda: scatter_rows(idx, contrib, P2), reps=10):.4f} ms")
+    with recorded_scatters() as calls1:
+        knn_step(pc1.points_padded(), pc2.points_padded(), pc1.num_points_per_cloud(),
+                 pc2.num_points_per_cloud(), 8)
+    require(len(calls1) == 1, f"config 1 backward made {len(calls1)} scatters, not 1")
+    idx1, contrib1, P21 = calls1[0]
+    for label, (idx, contrib, P2) in (
+        *((f"config 2 backward scatter {i}", c) for i, c in enumerate(calls)),
+        ("config 1 backward scatter", calls1[0]),
+        ("config 1 backward scatter, first cloud", (idx1[:1], contrib1[:1], P21)),
+    ):
+        hold_scatter(ks.scatter_add_rows, idx, contrib, P2, label)
+        line, steps = scatter_line(idx, contrib, P2)
+        print(f"  {label}: {line}")
+        require(len(steps) <= (1 if label.endswith("first cloud") else 4),
+                f"{label}: {len(steps)} device operations")
     hub_idx = torch.where(g2.idx < 0, 0, g2.idx).reshape(N2, -1)
     hub_c = torch.randn((*hub_idx.shape, 3), device=dev)
+    hold_scatter(ks.scatter_add_rows, hub_idx, hub_c, P2c, "config 2 hub scatter")
     print(f"  config 2 ball gather with padded slots sent to row 0: "
-          f"{int((g2.idx < 0).sum())} padded slots, longest segment "
-          f"{longest_segment(hub_idx, P2c)}, "
-          f"{cuda_ms(lambda: scatter_rows(hub_idx, hub_c, P2c), reps=10):.4f} ms")
+          f"{int((g2.idx < 0).sum())} padded slots; {scatter_line(hub_idx, hub_c, P2c)[0]}")
     for label, cloud, K in (("1M", big1, 1024), ("4M", big4, 512)):
         one = T(np.array([cloud.shape[1]]), torch.int64)
         ref = kf.fps_plain(cloud, one, T(np.array([K]), torch.int64),
@@ -2220,38 +2270,32 @@ def main() -> int:
 
     # The scatters take the main path's own indices: the north-star K=16
     # neighbours (grad_p2) and the config 3 x -> y nearest neighbours. Each
-    # call is also timed step by step (CUDA events recorded between its
-    # launches): the sort is every step but the segment sum.
+    # call is held bit-equal to the CPU twin and run to run, and also timed
+    # step by step (CUDA events recorded between its launches); index_add_
+    # is timed in both of its modes, non-deterministic (library_ms) and
+    # under torch.use_deterministic_algorithms(True) (library_det_ms), one
+    # call per pair of events, as the kernel's ms is.
     k1_idx = torch.where(torch.arange(P3, device=dev)[None] < l3x[:, None], outk[1], -1)
+
+    def one_call(fn):
+        return cuda_ms(fn, reps=10)
+
     for key, wrapper, idx, P2 in (
         ("rows", ks.scatter_add_rows, ns_sub[1].reshape(1, -1), 100000),
         ("k1", ks.scatter_add_k1, k1_idx, P3),
     ):
         N, E = idx.shape
         contrib = torch.randn((N, E, 3), device=dev)
-        plan, ref_plan = ks.sort_plan(idx, P2), ks.segment_plan(idx, P2)
-        require(torch.equal(plan[0], ref_plan[0]) and torch.equal(plan[1], ref_plan[1]),
-                f"sort_plan at the {key} main path's shape")
-        out1 = wrapper(idx, contrib, P2)
-        out2 = wrapper(idx, contrib, P2)
+        out1 = hold_scatter(wrapper, idx, contrib, P2,
+                            f"scatter {key} at the main path's shape")
         err = (out1 - ks.scatter_add_plain(idx, contrib, P2)).abs().max().item()
-        require(torch.equal(out1, out2), f"scatter {key} at the main path's shape: "
-                "not bit-equal")
         note_err(key, err)
         require(err <= TOL, f"scatter {key} at the main path's shape: err {err}")
         ms = cuda_ms(lambda: wrapper(idx, contrib, P2), reps=10)
-        steps = scatter_steps(idx, contrib, P2)
-        print(f"  scatter_add_{key} {N}x{E} into {P2} rows: sort "
-              f"{sum(steps.values()) - steps['segment sum']:.4f} ms + segment sum "
-              f"{steps['segment sum']:.4f} ms; per launch (ms) "
-              f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}")
+        line, steps = scatter_line(idx, contrib, P2)
+        print(f"  scatter_add_{key}: {line}")
+        require(len(steps) <= 4, f"scatter {key}: {len(steps)} device operations")
         plain_ms = cuda_ms(lambda: ks.scatter_add_plain(idx, contrib, P2), reps=10)
-        rows = torch.where(
-            idx >= 0, idx + torch.arange(N, device=dev)[:, None] * P2, N * P2
-        ).reshape(-1)
-        flat = contrib.reshape(-1, 3)
-        lib_out = torch.zeros((N * P2 + 1, 3), device=dev)
-        library_ms = cuda_ms(lambda: lib_out.index_add_(0, rows, flat), reps=10)
         valid = int((idx >= 0).sum())
         b = bound(E * N * (8 + 4 * 3) + N * P2 * 3 * 4, valid * 3)
         records.append(dict(
@@ -2262,22 +2306,43 @@ def main() -> int:
                       "pytorch3d_pointops_tpu/kernels/chamfer_pallas.py:367"),
             launches=launches[wrapper.__name__], max_abs_err=stats[key]["err"],
             ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-            library_ms=library_ms,
+            library_ms=library_ms(idx, contrib, P2, False, timer=one_call),
+            library_det_ms=library_ms(idx, contrib, P2, True, timer=one_call),
+            steps_ms=steps,
         ))
 
-    # A skewed input: one row receives 100,000 of 200,000 entries. The
-    # segment sum gives every row one thread, so that row is one serial sum.
+    # A skewed input (one row receives 100,000 of 200,000 entries) and every
+    # entry on one row, through both entry points: a long row is one
+    # thread's serial adds out of shared memory.
     skew_idx = T(rng.integers(0, 100000, size=(1, 200000)), torch.int64)
     skew_idx[0, ::2] = 7
     skew_c = torch.randn((1, 200000, 3), device=dev)
-    require(torch.equal(ks.scatter_add_rows(skew_idx, skew_c, 100000).cpu(),
-                        ks.scatter_add_plain(skew_idx.cpu(), skew_c.cpu(), 100000)),
-            "skewed scatter: not bit-equal to the CPU twin")
-    skew_ms = cuda_ms(lambda: ks.scatter_add_rows(skew_idx, skew_c, 100000), reps=5)
-    skew_steps = scatter_steps(skew_idx, skew_c, 100000, reps=5)
-    print(f"  skewed scatter (100,000 of 200,000 entries on one of 100,000 rows): "
-          f"{skew_ms:.4f} ms; per launch (ms) "
-          f"{json.dumps({k: round(v, 4) for k, v in skew_steps.items()})}")
+    for label, idx in (("skewed scatter (100,000 of 200,000 entries on one of "
+                        "100,000 rows)", skew_idx),
+                       ("one-row scatter (200,000 entries on one of 100,000 rows)",
+                        torch.full_like(skew_idx, 7))):
+        for wrapper in (ks.scatter_add_rows, ks.scatter_add_k1):
+            hold_scatter(wrapper, idx, skew_c, 100000, f"{label} {wrapper.__name__}")
+        k1_ms = cuda_ms(lambda: ks.scatter_add_k1(idx, skew_c, 100000), reps=5)
+        print(f"  {label}: {scatter_line(idx, skew_c, 100000, reps=5)[0]}; "
+              f"scatter_add_k1 {k1_ms:.4f} ms")
+
+    # Config 3's step with the source collapsed (every point at its cloud's
+    # first point plus noise of 1e-6, as a decoder's first steps may give):
+    # each direction's nearest neighbours crowd a few rows. Its K=1
+    # scatters, recorded, beside the normal step's: bit-equal to the CPU
+    # twin and run to run, longest row, time.
+    x3c = x3[:, :1] + 1e-6 * torch.randn_like(x3)
+    for label, pts in (("normal", x3), ("collapsed", x3c)):
+        with recorded_scatters() as calls3:
+            step3_ms = wall_ms(lambda: cham_step(pts.detach().clone().requires_grad_(True)),
+                               reps=3)
+        require(len(calls3) == 2 * 4, f"config 3 {label}: {len(calls3)} scatters")
+        for i, (idx, contrib, P2) in enumerate(calls3[:2]):
+            hold_scatter(ks.scatter_add_k1, idx, contrib, P2,
+                         f"config 3 {label} step scatter {i}")
+            print(f"  config 3 {label} step ({step3_ms:.3f} ms fwd+bwd) scatter_add_k1 "
+                  f"{i}: {scatter_line(idx, contrib, P2)[0]}")
 
     # Ball query at the config 2 shape, on the main path's own centroids. The
     # bound counts the pairs each query must visit: up to its K-th hit, or

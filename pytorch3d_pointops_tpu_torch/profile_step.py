@@ -8,8 +8,9 @@ Run from the repository root on a machine with a CUDA card:
 For each step it prints the device's busy time (the sum of its kernels,
 copies and fills; one stream, so they do not overlap), the wall time of
 the step ended by a synchronize, the share of that wall time the device was
-idle, and the longest kernels by name; then the card's name and power
-limit. ``chip_smoke.py`` calls ``device_share`` on its own steps. The steps
+idle, the longest kernels by name, and the scatter's kernels' time
+(``csrc/scatter.cu``, its memsets not counted) and share of the busy time;
+then the card's name and power limit. ``chip_smoke.py`` calls ``device_share`` on its own steps. The steps
 call only public entry points, so a copy of this file in an older tree's
 package profiles that tree's kernels. Exits 1 without a CUDA device.
 """
@@ -25,6 +26,11 @@ import time
 
 import numpy as np
 import torch
+
+# The kernels of csrc/scatter.cu, and segment_sum_kernel, the last step of
+# the scatter in older trees (so that a copy of this file there counts it).
+SCATTER_KERNELS = ("radix_histogram", "radix_onesweep", "bucket_sum_kernel",
+                   "segment_sum_kernel")
 
 
 def device_share(label: str, step) -> dict:
@@ -50,11 +56,13 @@ def device_share(label: str, step) -> dict:
             name = re.sub(r"^void |\(.*$", "", name)[:60]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    scatter = sum(v for k, v in by_name.items() if k.startswith(SCATTER_KERNELS))
     idle = 1 - busy / wall if dev_events else None
     print(f"  {label} step under torch.profiler: device busy {busy:.4f} ms "
           f"({sum(by_name.values()):.4f} ms in kernels, {len(dev_events)} device "
           f"activities) of {wall:.4f} ms wall; longest kernels (ms) "
-          f"{json.dumps({k: round(v, 4) for k, v in top})}")
+          f"{json.dumps({k: round(v, 4) for k, v in top})}; the scatter's kernels "
+          f"{scatter:.4f} ms ({scatter / busy if busy else 0:.4f} of busy)")
     if idle is None:
         print(f"  {label} step: the profiler traced no device activity; idle "
               "share not measured")
@@ -62,7 +70,7 @@ def device_share(label: str, step) -> dict:
         print(f"  {label} step device idle share: {idle:.4f} "
               f"(busy / wall {busy / wall:.4f})")
     return {"busy_ms": busy, "kernel_ms": sum(by_name.values()), "wall_ms": wall,
-            "idle_share": idle}
+            "idle_share": idle, "scatter_ms": scatter}
 
 
 def main() -> int:

@@ -49,6 +49,7 @@ def test_port_imports_no_jax():
         "pytorch3d_pointops_tpu_torch.parallel.multihost",
         "pytorch3d_pointops_tpu_torch.tune_fps",
         "pytorch3d_pointops_tpu_torch.tune_knn",
+        "pytorch3d_pointops_tpu_torch.tune_scatter",
         "pytorch3d_pointops_tpu_torch.profile_step",
         "pytorch3d_pointops_tpu_torch.structures.pointclouds",
         "pytorch3d_pointops_tpu_torch.convert",

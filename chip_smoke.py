@@ -168,9 +168,22 @@ and against the port's host library (``native.py``, built from
 ``csrc/pointops_cpu.cpp`` with ``g++``); a failure names the case's seed,
 shapes and parameters.
 
+Phase 10, after every other phase (a device-side assert would poison the
+context for whatever ran after it), runs ``sweep.empty_cases()``: empty
+dimensions (N, P1, P2 or P = 0), K = 0, the chamfer option matrix with an
+empty y cloud and every length 0 with P > 0, through the public ops on
+CUDA tensors against the same calls on CPU tensors (shapes, indices,
+values within 1e-5, NaN where NaN; where the JAX package refuses, both
+devices raise on the host, never a CUDA error). A case with an axis at 0
+must launch no kernel. Then the KNN, chamfer NN and ball query entry
+points are called directly at P2 = 0 and the rows scatter with no entry
+and into no row, each equal to its plain twin. It prints its wall time
+and the cases that launched each kernel.
+
 The line before the last is one JSON object with a record per kernel
 (every record carries ``examples_launches``, its launches over phase 8,
-and ``sweep_cases``, the phase 9 cases that launched it; the three kernels
+``sweep_cases``, the phase 9 cases that launched it, and ``empty_cases``,
+the phase 10 cases that did; the three kernels
 the rings run also carry ``ring_launches`` and rank 0's
 ``procs_launches``); the last line is ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero without that line.
@@ -1523,6 +1536,111 @@ def phase9(wrappers, dev):
     return cases
 
 
+# The parameters of an empty case that size an axis: one of them 0 means the
+# case has no pair of points or no slot, where no kernel may launch.
+EMPTY_AXES = ("N", "P1", "P2", "P", "K", "M")
+
+
+def refused(case, device) -> str:
+    """Runs ``case`` on ``device``, which must refuse it with an exception
+    raised on the host; returns its type's name. A CUDA error (a
+    device-side assert, a failed launch) fails the script."""
+    from pytorch3d_pointops_tpu_torch import sweep
+
+    try:
+        sweep.run_case(case, device)
+    except Exception as e:  # the refusal the JAX package also makes
+        require("CUDA" not in str(e) and "device-side" not in str(e),
+                f"{case}: a CUDA error on {device}: {e}")
+        return type(e).__name__
+    raise AssertionError(f"{case}: returned on {device}, where the JAX package refuses")
+
+
+def phase10(wrappers, dev):
+    """The directed empty cases (``sweep.empty_cases()``) on CUDA tensors
+    against the same calls on CPU tensors, then each kernel's entry point
+    called directly where the op layer no longer calls it. Returns, for
+    each wrapper, the number of cases that launched it."""
+    from pytorch3d_pointops_tpu_torch import sweep
+    from pytorch3d_pointops_tpu_torch.kernels import ball_query as kb
+    from pytorch3d_pointops_tpu_torch.kernels import chamfer as kc
+    from pytorch3d_pointops_tpu_torch.kernels import knn as kk
+    from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
+
+    t0 = time.perf_counter()
+    cases = {w.__name__: 0 for w in wrappers}
+    by_expect, refusals, worst = {}, {}, 0.0
+    for case in sweep.empty_cases():
+        for w in wrappers:
+            w.launches = 0
+        if case.expect == "raises":
+            refusals[str(case)] = [refused(case, dev), refused(case, "cpu")]
+        else:
+            got = sweep.run_case(case, dev)
+            torch.cuda.synchronize()
+            worst = max(worst, sweep.compare(case, got, sweep.run_case(case, "cpu"),
+                                             "card vs CPU"))
+        torch.cuda.synchronize()
+        fired = {w.__name__: w.launches for w in wrappers if w.launches}
+        for name in fired:
+            cases[name] += 1
+        if any(case.p.get(axis) == 0 for axis in EMPTY_AXES):
+            require(not fired, f"{case}: launched {fired} on an empty dimension")
+        elif fired:
+            print(f"  {case} ({case.expect}): launched {fired}")
+        by_expect[case.expect] = by_expect.get(case.expect, 0) + 1
+    ms = (time.perf_counter() - t0) * 1e3
+
+    # The entry points themselves at P2 = 0 and with no entry: total, and
+    # equal to their twins.
+    p1 = torch.randn((2, 5, 3), device=dev)
+    none = torch.zeros((2, 0, 3), device=dev)
+    full = torch.full((2,), 5, dtype=torch.int64, device=dev)
+    zero = torch.zeros((2,), dtype=torch.int64, device=dev)
+    cpu = [t.cpu() for t in (p1, none, full, zero)]
+    held = []
+    for name, kernel, twin, args in (
+        ("knn_topk", kk.knn_topk_cuda, kk.knn_topk_plain, (2, 2)),
+        ("knn_topk K=70", kk.knn_topk_cuda, kk.knn_topk_plain, (70, 2)),
+        ("chamfer_nn_bidir", kc.chamfer_nn_cuda, kc.chamfer_nn_plain, (2,)),
+        ("ball_query", kb.ball_query_cuda, kb.ball_query_plain, (3, 1.0)),
+    ):
+        if name.startswith("knn"):
+            got = kernel(p1, none, zero, *args)
+            want = twin(cpu[0], cpu[1], cpu[3], *args)
+        else:
+            got = kernel(p1, none, full, zero, *args)
+            want = twin(cpu[0], cpu[1], cpu[2], cpu[3], *args)
+        torch.cuda.synchronize()
+        require(all(g.shape == w.shape and torch.equal(g.cpu(), w)
+                    for g, w in zip(got, want)), f"{name} at P2 = 0 differs from its twin")
+        held.append(f"{name} at P2 = 0")
+    for label, idx, contrib, P2 in (
+        ("no entry into 2 x 5 rows", torch.zeros((2, 0), dtype=torch.int64, device=dev),
+         torch.zeros((2, 0, 3), device=dev), 5),
+        ("no entry into 4 x 4,096 rows (partitioned)",
+         torch.zeros((4, 0), dtype=torch.int64, device=dev),
+         torch.zeros((4, 0, 3), device=dev), 4096),
+        ("4 entries into no row", torch.full((2, 4), -1, dtype=torch.int64, device=dev),
+         torch.randn((2, 4, 3), device=dev), 0),
+    ):
+        got = ks.scatter_add_rows(idx, contrib, P2)
+        torch.cuda.synchronize()
+        want = ks.scatter_add_plain(idx.cpu(), contrib.cpu(), P2)
+        require(got.shape == want.shape and torch.equal(got.cpu(), want),
+                f"scatter {label} differs from its twin")
+        held.append(f"scatter {label}")
+    print(f"phase 10: {sum(by_expect.values())} directed empty cases "
+          f"({json.dumps(by_expect)}) on the card in {ms:.1f} ms wall: every returning "
+          f"case equal to the CPU path (shapes, indices, values within {TOL} (largest "
+          f"difference {worst:.3g}), NaN where NaN), every refusal raised on the host on "
+          f"both devices {json.dumps(sorted(set(map(tuple, refusals.values()))))}, no "
+          f"launch where an axis is 0; cases that launched each kernel "
+          f"{json.dumps(cases)}; the entry points called directly, equal to their twins: "
+          f"{'; '.join(held)} [{gpu_line()}]")
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1531,6 +1649,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     sys.path.insert(0, REPO)
     import pytorch3d_pointops_tpu_torch as ppt
     from pytorch3d_pointops_tpu_torch import _build
@@ -2438,10 +2557,13 @@ def main() -> int:
           "r=0.2; fps_batched 32 x 4096 (ragged) K=512; fps_resident 1 x "
           "1,000,000 K=1024; fps_streaming 1 x 4,000,000 K=512; all D=3")
 
+    # ---------------- phase 10: empty dimensions, after every other phase ----------------
+    empty_cases = phase10(wrappers, dev)
+
     # The ring's launches of the three kernels its hops run (phase 6), and
     # rank 0's on the ring across processes (phase 7); every kernel's
-    # launches over the examples (phase 8) and the sweep's cases that
-    # launched it (phase 9).
+    # launches over the examples (phase 8), the sweep's cases that
+    # launched it (phase 9) and the directed empty cases' (phase 10).
     for rec in records:
         wrapper = {"knn_topk": "knn_topk_cuda", "chamfer_nn_bidir": "chamfer_nn_cuda",
                    "ball_query": "ball_query_cuda"}.get(rec["name"], rec["name"])
@@ -2450,6 +2572,8 @@ def main() -> int:
             rec["procs_launches"] = procs_launches[wrapper]
         rec["examples_launches"] = examples_launches[wrapper]
         rec["sweep_cases"] = sweep_cases[wrapper]
+        rec["empty_cases"] = empty_cases[wrapper]
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all [{gpu_line()}]")
     print(json.dumps({"kernels": records}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

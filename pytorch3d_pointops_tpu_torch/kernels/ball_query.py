@@ -61,7 +61,9 @@ def ball_query_plain(p1, p2, lengths1, lengths2, K: int, r2: float):
     P2 = p2.shape[1]
     dev = p1.device
     i_valid = torch.arange(P1, device=dev)[None, :, None] < lengths1[:, None, None]
-    tile = P2 if N * P1 * P2 <= _FULL_MATRIX_MAX_ELEMS else _TILE_P2
+    # max(P2, 1): with no candidate the loop runs no tile and every slot
+    # stays padding.
+    tile = max(P2, 1) if N * P1 * P2 <= _FULL_MATRIX_MAX_ELEMS else _TILE_P2
     keys = torch.full((N, P1, K), _BIG, dtype=torch.int64, device=dev)
     dists = p1.new_zeros((N, P1, K))
     for off in range(0, P2, tile):

@@ -45,13 +45,16 @@ def chamfer_nn_plain(x, y, lengths1, lengths2, norm: int):
     """Plain PyTorch twin, on any device: per cloud, chunks of x rows
     against all of y, one jointly masked distance tile per chunk serving
     both directions; strict < across ascending chunks keeps the lowest x
-    index for the y -> x side."""
+    index for the y -> x side. Where x or y has no point, every point has
+    no partner: (inf, 0), as the kernel gives."""
     N, P1, _ = x.shape
     P2 = y.shape[1]
     d_xy = x.new_full((N, P1), _INF)
     i_xy = torch.zeros((N, P1), dtype=torch.int64, device=x.device)
     d_yx = x.new_full((N, P2), _INF)
     i_yx = torch.zeros((N, P2), dtype=torch.int64, device=x.device)
+    if P1 == 0 or P2 == 0:
+        return d_xy, i_xy, d_yx, i_yx
     jv = torch.arange(P2, device=x.device)
     for n in range(N):
         yvalid = jv < lengths2[n]

@@ -23,7 +23,13 @@ from .utils import masked_gather
 class _BallQuery(torch.autograd.Function):
     @staticmethod
     def forward(ctx, p1, p2, lengths1, lengths2, K, r2):
-        dists, idx = _bq_kernel.ball_query_points(p1, p2, lengths1, lengths2, K, r2)
+        N, P1, _ = p1.shape
+        if N * P1 * p2.shape[1] * K == 0:
+            # Every slot is padding, with no kernel launched.
+            dists = p1.new_zeros((N, P1, K))
+            idx = torch.full((N, P1, K), -1, dtype=torch.int64, device=p1.device)
+        else:
+            dists, idx = _bq_kernel.ball_query_points(p1, p2, lengths1, lengths2, K, r2)
         ctx.save_for_backward(p1, p2, lengths1, lengths2, idx)
         ctx.mark_non_differentiable(idx)
         return dists, idx
@@ -53,7 +59,8 @@ def ball_query(
         p1: (N, P1, D) query clouds.
         p2: (N, P2, D) reference clouds, on the same device.
         lengths1 / lengths2: (N,) valid lengths (default: all P1 / P2).
-        K: the most neighbours kept per query; any K >= 1.
+        K: the most neighbours kept per query; any K >= 0 (K = 0 gives
+            empty last axes).
         radius: the ball's radius; a point is inside when its squared
             distance is strictly below ``radius**2`` (formed in double and
             rounded to float32 once).

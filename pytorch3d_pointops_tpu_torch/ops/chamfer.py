@@ -26,6 +26,8 @@ from ..kernels import scatter as _scatter
 from ..structures.pointclouds import Pointclouds
 from .knn import _apply_pad_conventions, knn_gather, knn_points
 
+_INF = float("inf")
+
 
 def _validate_chamfer_reduction_inputs(batch_reduction, point_reduction):
     if batch_reduction is not None and batch_reduction not in ["mean", "sum"]:
@@ -83,9 +85,13 @@ def _cosine_similarity(a, b, eps: float = 1e-6):
 
 def _k1_backward(p1, p2, lengths1, lengths2, idx, norm, g):
     """K=1 KNN backward. The mask is on ``lengths2 > 0`` (not on
-    ``k < lengths2``); grad_p2 is the deterministic segment-sum."""
+    ``k < lengths2``); grad_p2 is the deterministic segment-sum. Where p1
+    or p2 has no point, both gradients are zeros and nothing is
+    gathered."""
     N, P1 = idx.shape
     dev = p1.device
+    if N * P1 * p2.shape[1] == 0:
+        return torch.zeros_like(p1), torch.zeros_like(p2)
     valid = (
         (torch.arange(P1, device=dev)[None, :] < lengths1[:, None])
         & (lengths2[:, None] > 0)
@@ -104,13 +110,25 @@ def _k1_backward(p1, p2, lengths1, lengths2, idx, norm, g):
     return diff, grad_p2
 
 
+def _unpaired(x, y):
+    """Raw (d_xy, i_xy, d_yx, i_yx) of (inf, 0) where x and y have no pair
+    of points (no point has a partner), else None: a shape test on the
+    host, so that no kernel or hop meets an empty axis."""
+    if x.shape[0] * x.shape[1] * y.shape[1]:
+        return None
+    return (x.new_full(x.shape[:2], _INF),
+            torch.zeros(x.shape[:2], dtype=torch.int64, device=x.device),
+            y.new_full(y.shape[:2], _INF),
+            torch.zeros(y.shape[:2], dtype=torch.int64, device=y.device))
+
+
 class _NNBidir(torch.autograd.Function):
     """Both chamfer K=1 directions from one pass, with the pad conventions
     applied per direction. Returns (d_xy, i_xy, d_yx, i_yx)."""
 
     @staticmethod
     def forward(ctx, x, y, x_lengths, y_lengths, norm):
-        d1, i1, d2, i2 = _chamfer_kernel.chamfer_nn_bidirectional(
+        d1, i1, d2, i2 = _unpaired(x, y) or _chamfer_kernel.chamfer_nn_bidirectional(
             x, y, x_lengths, y_lengths, norm
         )
         d1, i1 = _apply_pad_conventions(

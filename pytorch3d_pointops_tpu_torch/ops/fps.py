@@ -105,7 +105,13 @@ def sample_farthest_points(
     Returns:
         (selected_points (N, max_K, D) zero-padded,
          selected_indices (N, max_K) int64, -1-padded).
+
+    Raises ``ValueError`` where N or P is 0, as the JAX package refuses
+    those batches (``sample_farthest_points_naive`` takes them).
     """
+    if points.shape[0] == 0 or points.shape[1] == 0:
+        raise ValueError("sample_farthest_points needs N >= 1 clouds of P >= 1 "
+                         f"points (got points of shape {tuple(points.shape)})")
     points = points.to(torch.float32).contiguous()
     lengths, K_t, max_K, starts = _prepare(
         points, lengths, K, random_start_point, generator

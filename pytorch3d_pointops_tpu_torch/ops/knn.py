@@ -34,14 +34,28 @@ def _apply_pad_conventions(vals, idx, lengths1, lengths2, K, P1):
     return torch.where(valid, vals, 0.0), torch.where(valid, idx, 0)
 
 
+def _scatter_rows(idx, contrib, P2: int):
+    """``kernels.scatter.scatter_add_rows``, or zeros of its output shape
+    where there is nothing to add: no entry, no target row or no channel.
+    A shape test on the host: no kernel meets a zero-size grid."""
+    N, E, C = contrib.shape
+    if N * E * P2 * C == 0:
+        return contrib.new_zeros((N, P2, C), dtype=torch.float32)
+    return _scatter.scatter_add_rows(idx, contrib, P2)
+
+
 def knn_backward(p1, p2, lengths1, lengths2, idx, norm, grad_dists):
     """Gradient of the (squared) KNN distances with respect to p1 and p2.
 
     Entries with ``idx < 0``, ``i >= lengths1`` or ``k >= lengths2``
-    contribute 0. grad_p2 is a deterministic segment-sum."""
+    contribute 0. grad_p2 is a deterministic segment-sum. Where p2 has no
+    point or idx no entry, both gradients are zeros and nothing is
+    gathered."""
     N, P1, K = idx.shape
     D = p1.shape[2]
     dev = p1.device
+    if p2.shape[1] == 0 or idx.numel() == 0:
+        return torch.zeros_like(p1), torch.zeros_like(p2)
     valid = (
         (torch.arange(P1, device=dev)[None, :, None] < lengths1[:, None, None])
         & (torch.arange(K, device=dev)[None, None, :] < lengths2[:, None, None])
@@ -58,7 +72,7 @@ def knn_backward(p1, p2, lengths1, lengths2, idx, norm, grad_dists):
         diff = 2.0 * grad_dists[..., None] * (p1[:, :, None, :] - p2_g)
     diff = torch.where(valid[..., None], diff, 0.0)
     grad_p1 = diff.sum(dim=2)
-    grad_p2 = _scatter.scatter_add_rows(
+    grad_p2 = _scatter_rows(
         torch.where(valid, idx, -1).reshape(N, P1 * K),
         (-diff).reshape(N, P1 * K, D),
         p2.shape[1],
@@ -66,7 +80,21 @@ def knn_backward(p1, p2, lengths1, lengths2, idx, norm, grad_dists):
     return grad_p1, grad_p2
 
 
+def _all_pads(p1, p2, K):
+    """(dists, idx) of (N, P1, K) zeros where p1 and p2 have no pair of
+    points or K is 0 (every entry is a pad), else None: a shape test on the
+    host, so that no kernel, gather or hop meets an empty axis."""
+    N, P1, _ = p1.shape
+    if N * P1 * p2.shape[1] * K:
+        return None
+    return (p1.new_zeros((N, P1, K)),
+            torch.zeros((N, P1, K), dtype=torch.int64, device=p1.device))
+
+
 def _knn_forward(p1, p2, lengths1, lengths2, K, norm):
+    pads = _all_pads(p1, p2, K)
+    if pads is not None:
+        return pads
     vals, idx = _knn_kernel.knn_topk(p1, p2, lengths2, K, norm)
     return _apply_pad_conventions(vals, idx, lengths1, lengths2, K, p1.shape[1])
 
@@ -113,7 +141,8 @@ def knn_points(
         p2: (N, P2, D) reference clouds, on the same device.
         lengths1 / lengths2: (N,) valid lengths (default: all P1 / P2).
         norm: 1 (L1) or 2 (squared L2).
-        K: number of neighbours; any K >= 1.
+        K: number of neighbours; any K >= 0 (K = 0 gives empty last
+            axes).
         version: accepted for API compatibility with the reference's CUDA
             kernel-version knob; ignored.
         return_nn: also gather the neighbour coordinates via ``knn_gather``.
@@ -184,6 +213,8 @@ class _Gather(torch.autograd.Function):
         ctx.save_for_backward(scatter_idx)
         ctx.rows = x.shape[1]
         U = x.shape[2]
+        if ctx.rows == 0:  # no row to gather: every entry is masked out
+            return x.new_zeros((*idx_flat.shape, U))
         return torch.gather(
             x, 1, idx_flat[..., None].expand(*idx_flat.shape, U)
         )
@@ -191,7 +222,7 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         (scatter_idx,) = ctx.saved_tensors
-        grad_x = _scatter.scatter_add_rows(
+        grad_x = _scatter_rows(
             scatter_idx, grad_out.to(torch.float32).contiguous(), ctx.rows
         )
         return grad_x, None, None

@@ -8,6 +8,7 @@ backward is the deterministic segment-sum of ``kernels/scatter.py`` (through
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -32,12 +33,13 @@ def masked_gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if idx.dim() not in (2, 3):
         raise ValueError("idx format is not supported %s" % repr(tuple(idx.shape)))
     N, _, D = points.shape
+    E = math.prod(idx.shape[1:])  # not -1: N may be 0
     mask = idx == -1
     # Masked slots gather row 0 and are zeroed by the where below; the
     # backward skips them (index -1) rather than adding zeros into row 0.
     idx = idx.to(torch.int64)
-    safe_idx = torch.where(mask, 0, idx).reshape(N, -1)
-    gathered = _Gather.apply(points, safe_idx, idx.reshape(N, -1))
+    safe_idx = torch.where(mask, 0, idx).reshape(N, E)
+    gathered = _Gather.apply(points, safe_idx, idx.reshape(N, E))
     return torch.where(mask[..., None], 0.0, gathered.reshape(*idx.shape, D))
 
 

@@ -63,9 +63,17 @@ from ..ops.chamfer import (
     _chamfer_distance_single_direction,
     _combine_directions,
     _LocalSums,
+    _unpaired,
     _validate_chamfer_reduction_inputs,
 )
-from ..ops.knn import _KNN, _apply_pad_conventions, _lengths, knn_backward, knn_gather
+from ..ops.knn import (
+    _KNN,
+    _all_pads,
+    _apply_pad_conventions,
+    _lengths,
+    knn_backward,
+    knn_gather,
+)
 from .mesh import Mesh, ProcessMesh, ShardedTensor, _block, comm_device
 
 _INF = float("inf")
@@ -439,9 +447,15 @@ class _RingKnn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, p1, p2, lengths1, lengths2, ring, K, norm):
-        d, i = _ring_knn_fwd(ring, p1, p2, lengths2, K, norm)
-        d, i = _apply_pad_conventions(d, i, ring.row_lengths(lengths1, p1.shape[1]),
-                                      lengths2, K, p1.shape[1])
+        # Without a pair of points or a slot, no hop (the blocks' sizes are
+        # the same on every process, so every one skips).
+        pads = _all_pads(p1, p2, K)
+        if pads is None:
+            d, i = _ring_knn_fwd(ring, p1, p2, lengths2, K, norm)
+            d, i = _apply_pad_conventions(d, i, ring.row_lengths(lengths1, p1.shape[1]),
+                                          lengths2, K, p1.shape[1])
+        else:
+            d, i = pads
         ctx.save_for_backward(p1, p2, lengths1, lengths2, i)
         ctx.ring, ctx.norm = ring, norm
         ctx.mark_non_differentiable(i)
@@ -450,6 +464,9 @@ class _RingKnn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_dists, _grad_idx):
         p1, p2, lengths1, lengths2, idx = ctx.saved_tensors
+        if p2.shape[1] * idx.numel() == 0:
+            return (torch.zeros_like(p1), torch.zeros_like(p2), None, None, None,
+                    None, None)
         gp1, gp2 = _ring_knn_bwd(ctx.ring, p1, p2, lengths1, lengths2, idx,
                                  grad_dists.to(torch.float32), ctx.norm)
         return gp1, gp2, None, None, None, None, None
@@ -571,11 +588,16 @@ class _RingGather(torch.autograd.Function):
     def forward(ctx, values, idx, ring):
         ctx.save_for_backward(idx)
         ctx.ring, ctx.rows, ctx.dtype = ring, values.shape[1], values.dtype
+        if ctx.rows * idx.numel() == 0:  # nothing to gather: no hop
+            return values.new_zeros((*idx.shape, values.shape[2]))
         return _ring_gather_fwd(ring, values, idx)
 
     @staticmethod
     def backward(ctx, grad):
         (idx,) = ctx.saved_tensors
+        if ctx.rows * idx.numel() == 0:
+            return grad.new_zeros((idx.shape[0], ctx.rows, grad.shape[-1]),
+                                  dtype=ctx.dtype), None, None
         gv = _ring_gather_bwd(ctx.ring, idx, grad.to(torch.float32), ctx.rows)
         return gv.to(ctx.dtype), None, None
 
@@ -703,7 +725,8 @@ class _RingNNBidir(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, y, x_lengths, y_lengths, ring, norm):
-        d1, i1, d2, i2 = _ring_nn_fwd(ring, x, y, x_lengths, y_lengths, norm)
+        d1, i1, d2, i2 = _unpaired(x, y) or _ring_nn_fwd(ring, x, y, x_lengths,
+                                                         y_lengths, norm)
         d1, i1 = _apply_pad_conventions(
             d1[..., None], i1[..., None], ring.row_lengths(x_lengths, x.shape[1]),
             y_lengths, 1, x.shape[1])
@@ -719,6 +742,8 @@ class _RingNNBidir(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gd1, _gi1, gd2, _gi2):
         x, y, x_lengths, y_lengths, i1, i2 = ctx.saved_tensors
+        if x.shape[0] * x.shape[1] * y.shape[1] == 0:
+            return torch.zeros_like(x), torch.zeros_like(y), None, None, None, None
         gx, gy = _ring_nn_bwd(ctx.ring, x, y, x_lengths, y_lengths, i1,
                               gd1.to(torch.float32), i2, gd2.to(torch.float32),
                               ctx.norm)

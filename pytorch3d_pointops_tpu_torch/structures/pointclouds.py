@@ -594,8 +594,12 @@ def join_pointclouds_as_scene(
 
 def get_bounding_boxes(pointcloud: Pointclouds) -> torch.Tensor:
     """(N, 3, 2) per-cloud axis-aligned min/max, from the padded points and
-    a lengths mask."""
+    a lengths mask. Raises ``ValueError`` where every cloud is empty, as
+    the JAX package does."""
     pts = pointcloud.points_padded()
+    if pts.shape[1] == 0:
+        raise ValueError("zero-size array to reduction operation min which has "
+                         "no identity")
     mask = pointcloud._mask()[..., None]
     mins = torch.where(mask, pts, float("inf")).amin(dim=1)
     maxs = torch.where(mask, pts, float("-inf")).amax(dim=1)

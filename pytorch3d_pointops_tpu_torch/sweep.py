@@ -31,6 +31,16 @@ family, seed, shapes and parameters.
 
 The large clouds and the routes they take (the FPS grid kernel, sorted and
 seeded KNN) are ``chip_smoke.py``'s directed phases, not the sweep's.
+
+``empty_cases()`` is a directed list apart from the seeded one: empty
+dimensions (N, P1, P2 or P = 0), K = 0, the chamfer option matrix with an
+empty y cloud, and every length 0 with P > 0, through the same public ops
+and five more families (``masked_gather``, ``knn_gather``,
+``covariances``, ``fps_naive``, ``bounding_boxes``). Each case records in
+``expect`` what the JAX package does with it: ``"returns"`` its outputs,
+``"raises"`` a refusal that the port makes too, or ``"crashes"`` inside
+its reshapes (integer modulo by zero at N = 0: KNN, ball query, the
+grouped ``masked_gather``) where the port returns its empty outputs.
 """
 
 from __future__ import annotations
@@ -45,13 +55,17 @@ from . import native
 from .ops import (
     ball_query,
     chamfer_distance,
+    get_point_covariances,
+    knn_gather,
     knn_points,
     masked_gather,
     packed_to_padded,
     padded_to_packed,
     sample_farthest_points,
+    sample_farthest_points_naive,
     sample_pdf,
 )
+from .structures import Pointclouds, get_bounding_boxes
 
 FAMILIES = ("knn", "ball_query", "fps", "chamfer", "gather", "sample_pdf")
 DIMS = (1, 2, 3, 5)
@@ -66,6 +80,7 @@ class Case:
     family: str
     seed: int
     params: tuple  # sorted (name, value) pairs
+    expect: str = "returns"  # what the JAX package does: returns, raises, crashes
 
     @property
     def p(self) -> dict:
@@ -136,6 +151,102 @@ def cases(count: int, first_seed: int = 0) -> list:
     return out
 
 
+# The chamfer reductions that ``chamfer_distance`` accepts, as
+# (point_reduction, batch_reduction).
+CHAMFER_REDUCTIONS = (("mean", "mean"), ("mean", "sum"), ("mean", None),
+                      ("sum", "mean"), ("sum", "sum"), ("sum", None),
+                      ("max", "mean"), ("max", "sum"), ("max", None), (None, None))
+
+
+def _chamfer_params(N, P1, P2, i, point_reduction, batch_reduction, single,
+                    weights, lengths="full") -> dict:
+    return dict(N=N, P1=P1, P2=P2, D=3, grid=False, dup=False, lengths=lengths,
+                norm=1 + i % 2, abs_cosine=i % 3 != 0,
+                point_reduction=point_reduction, batch_reduction=batch_reduction,
+                single_directional=single, weights=weights,
+                features=0 if point_reduction == "max" else 2)
+
+
+def _chamfer_expect(p) -> str:
+    """A max reduction over a direction with no point raises in the JAX
+    package (and in the port), unless all-zero weights return zero losses
+    first; every other chamfer input returns."""
+    empty = p["P1"] == 0 or (p["P2"] == 0 and not p["single_directional"])
+    raises = (p["point_reduction"] == "max" and p["N"] and empty
+              and p["weights"] != "zero")
+    return "raises" if raises else "returns"
+
+
+def empty_cases() -> list:
+    """The directed empty cases: each ``Case`` with its inputs' shapes in
+    ``params`` (``lengths`` "full" or "zero") and the JAX package's
+    behaviour in ``expect``. Case i draws its values from seed i."""
+    cloud = dict(D=3, grid=False, dup=False)
+    specs = [
+        # KNN: an empty y cloud in both norms (the forward, return_nn and
+        # the backward), K past one 64-key round, K = 0, no query, every
+        # length 0; N = 0 crashes a reshape in JAX.
+        ("knn", "returns", dict(N=2, P1=5, P2=0, K=2, norm=2, lengths="full")),
+        ("knn", "returns", dict(N=2, P1=5, P2=0, K=2, norm=1, lengths="full")),
+        ("knn", "returns", dict(N=2, P1=5, P2=0, K=70, norm=2, lengths="full")),
+        ("knn", "returns", dict(N=2, P1=5, P2=4, K=0, norm=2, lengths="full")),
+        ("knn", "returns", dict(N=2, P1=0, P2=4, K=2, norm=1, lengths="full")),
+        ("knn", "returns", dict(N=2, P1=5, P2=4, K=2, norm=2, lengths="zero")),
+        ("knn", "crashes", dict(N=0, P1=5, P2=4, K=2, norm=2, lengths="full")),
+        ("ball_query", "returns", dict(N=2, P1=5, P2=0, K=3, radius=1.0, lengths="full")),
+        ("ball_query", "returns", dict(N=2, P1=5, P2=4, K=0, radius=1.0, lengths="full")),
+        ("ball_query", "returns", dict(N=2, P1=0, P2=4, K=3, radius=1.0, lengths="full")),
+        ("ball_query", "returns", dict(N=2, P1=5, P2=4, K=3, radius=1.0, lengths="zero")),
+        ("ball_query", "crashes", dict(N=0, P1=5, P2=4, K=3, radius=1.0, lengths="full")),
+        # The main FPS refuses N = 0 and P = 0 (JAX raises there); the naive
+        # one returns.
+        ("fps", "raises", dict(N=0, P=5, K=3, per_cloud_K=False, lengths="full")),
+        ("fps", "raises", dict(N=2, P=0, K=3, per_cloud_K=False, lengths="full")),
+        ("fps", "returns", dict(N=2, P=5, K=3, per_cloud_K=False, lengths="zero")),
+        ("fps", "returns", dict(N=3, P=5, K=3, per_cloud_K=True, lengths="zero")),
+        ("fps_naive", "returns", dict(N=0, P=5, K=3, per_cloud_K=False, lengths="full")),
+        ("fps_naive", "returns", dict(N=2, P=0, K=3, per_cloud_K=False, lengths="full")),
+        ("fps_naive", "returns", dict(N=2, P=5, K=3, per_cloud_K=False, lengths="zero")),
+        ("masked_gather", "returns", dict(N=0, P=5, S=4, grouped=False)),
+        ("masked_gather", "crashes", dict(N=0, P=5, S=4, P1=3, grouped=True)),
+        ("masked_gather", "returns", dict(N=2, P=0, S=4, grouped=False)),
+        ("masked_gather", "returns", dict(N=2, P=0, S=2, P1=4, grouped=True)),
+        ("knn_gather", "returns", dict(N=2, M=0, U=3, L=5, K=3)),
+        ("knn_gather", "returns", dict(N=2, M=4, U=3, L=5, K=0)),
+        ("covariances", "returns", dict(N=2, P=5, K=0, lengths="full")),
+        ("covariances", "returns", dict(N=2, P=0, K=2, lengths="full")),
+        ("bounding_boxes", "raises", dict(N=2, P=0, lengths="full")),
+    ]
+    # The chamfer option matrix with y empty (features wherever the max
+    # reduction allows them), then x empty, no cloud, and every length 0.
+    chamfer = [_chamfer_params(2, 5, 0, i, pr, br, single, w)
+               for i, ((pr, br), single, w) in enumerate(
+                   (r, s, w) for r in CHAMFER_REDUCTIONS for s in (False, True)
+                   for w in ("none", "random", "zero"))]
+    chamfer += [_chamfer_params(2, 0, 5, i, pr, br, single, "random")
+                for i, (pr, br, single) in enumerate((("mean", "mean", False),
+                                                      (None, None, False),
+                                                      ("sum", "mean", True),
+                                                      ("max", "sum", False)))]
+    # No features at N = 0: JAX's feature gather crashes there (integer
+    # modulo by zero in a reshape).
+    chamfer += [{**_chamfer_params(0, 5, 4, i, pr, br, False, "none"), "features": 0}
+                for i, (pr, br) in enumerate((("mean", "mean"), ("max", None)))]
+    chamfer += [_chamfer_params(2, 5, 4, i, pr, br, single, "random", "zero")
+                for i, (pr, br, single) in enumerate((("mean", "mean", False),
+                                                      ("max", "mean", False),
+                                                      (None, None, True)))]
+    specs += [("chamfer", _chamfer_expect(p), p) for p in chamfer]
+    out = []
+    for i, (family, expect, params) in enumerate(specs):
+        params = {**cloud, **params} if family != "chamfer" else params
+        if family in ("fps", "fps_naive"):
+            params.setdefault("random_start", False)
+        out.append(Case(family, i, tuple(sorted(params.items(), key=lambda kv: kv[0])),
+                        expect))
+    return out
+
+
 def _points(rng, shape, grid: bool, dup: bool) -> np.ndarray:
     if grid:
         pts = rng.integers(-4, 5, size=shape).astype(np.float32) / 8.0
@@ -156,6 +267,14 @@ def _lengths(rng, N: int, P: int) -> np.ndarray:
     return lengths.astype(np.int64)
 
 
+def _case_lengths(rng, p: dict, N: int, P: int) -> np.ndarray:
+    """Drawn lengths, or every length ``P`` or 0 where ``p["lengths"]``
+    says "full" or "zero" (the empty cases)."""
+    if "lengths" not in p:
+        return _lengths(rng, N, P)
+    return np.full(N, P if p["lengths"] == "full" else 0, np.int64)
+
+
 def inputs(case: Case) -> Dict[str, np.ndarray]:
     """The case's numpy inputs, drawn from its seed."""
     rng = np.random.default_rng([case.seed, 1])
@@ -166,8 +285,8 @@ def inputs(case: Case) -> Dict[str, np.ndarray]:
         out = {
             "p1": _points(rng, (N, P1, D), p["grid"], p["dup"]),
             "p2": _points(rng, (N, P2, D), p["grid"], p["dup"]),
-            "lengths1": _lengths(rng, N, P1),
-            "lengths2": _lengths(rng, N, P2),
+            "lengths1": _case_lengths(rng, p, N, P1),
+            "lengths2": _case_lengths(rng, p, N, P2),
         }
         if case.family in ("knn", "ball_query"):
             out["g"] = rng.uniform(-1, 1, size=(N, P1, p["K"])).astype(f32)
@@ -178,12 +297,29 @@ def inputs(case: Case) -> Dict[str, np.ndarray]:
             out["weights"] = {"none": None, "zero": np.zeros(N, f32),
                               "random": rng.uniform(0, 1, size=N).astype(f32)}[p["weights"]]
         return out
-    if case.family == "fps":
+    if case.family in ("fps", "fps_naive"):
         N, P, D = p["N"], p["P"], p["D"]
         K = (rng.integers(0, P + 8, size=N).astype(np.int64) if p["per_cloud_K"]
              else np.int64(p["K"]))
         return {"points": _points(rng, (N, P, D), p["grid"], p["dup"]),
-                "lengths": _lengths(rng, N, P), "K": K}
+                "lengths": _case_lengths(rng, p, N, P), "K": K}
+    if case.family == "masked_gather":
+        N, P, D, S = p["N"], p["P"], p["D"], p["S"]
+        shape = (N, p["P1"], S) if p["grouped"] else (N, S)
+        return {"points": _points(rng, (N, P, D), False, False),
+                "idx": rng.integers(-1, P, size=shape).astype(np.int64),
+                "h": rng.uniform(-1, 1, size=(*shape, D)).astype(f32)}
+    if case.family == "knn_gather":
+        N, M, U, L, K = p["N"], p["M"], p["U"], p["L"], p["K"]
+        return {"x": _points(rng, (N, M, U), False, False),
+                "idx": rng.integers(0, max(M, 1), size=(N, L, K)).astype(np.int64),
+                "h": rng.uniform(-1, 1, size=(N, L, K, U)).astype(f32)}
+    if case.family in ("covariances", "bounding_boxes"):
+        N, P, D = p["N"], p["P"], p["D"]
+        return {"points": _points(rng, (N, P, D), False, False),
+                "lengths": _case_lengths(rng, p, N, P),
+                "h": rng.uniform(-1, 1, size=(N, P, D, D)).astype(f32),
+                "h_nn": rng.uniform(-1, 1, size=(N, P, p.get("K", 0), D)).astype(f32)}
     if case.family == "gather":
         N, P, D, S = p["N"], p["P2"], p["D"], p["S"]
         shape = (N, p["P1"], S) if p["grouped"] else (N, S)
@@ -254,16 +390,31 @@ def run_case(case: Case, device) -> Dict[str, np.ndarray]:
         (res.dists * T(x["g"])).sum().backward()
         return {"dists": _np(res.dists), "idx": _np(res.idx), "nn": _np(res.knn),
                 "grad_p1": _np(p1.grad), "grad_p2": _np(p2.grad)}
-    if case.family == "fps":
+    if case.family in ("fps", "fps_naive"):
         points = T(x["points"])
         K = int(x["K"]) if np.ndim(x["K"]) == 0 else T(x["K"])
         # The random starts come from a CPU generator, the same on every
         # device.
         gen = torch.Generator().manual_seed(case.seed) if p["random_start"] else None
-        sel, idx = sample_farthest_points(points, T(x["lengths"]), K=K,
-                                          random_start_point=p["random_start"],
-                                          generator=gen)
+        fps = sample_farthest_points if case.family == "fps" else sample_farthest_points_naive
+        sel, idx = fps(points, T(x["lengths"]), K=K, random_start_point=p["random_start"],
+                       generator=gen)
         return {"idx": _np(idx), "points": _np(sel)}
+    if case.family in ("masked_gather", "knn_gather"):
+        values = T(x["points" if case.family == "masked_gather" else "x"], True)
+        gathered = (masked_gather(values, T(x["idx"])) if case.family == "masked_gather"
+                    else knn_gather(values, T(x["idx"])))
+        (gathered * T(x["h"])).sum().backward()
+        return {"gathered": _np(gathered), "grad": _np(values.grad)}
+    if case.family == "covariances":
+        points = T(x["points"], True)
+        cov, nn = get_point_covariances(points, T(x["lengths"]), p["K"])
+        ((cov * T(x["h"])).sum() + (nn * T(x["h_nn"])).sum()).backward()
+        return {"cov": _np(cov), "nn": _np(nn), "grad": _np(points.grad)}
+    if case.family == "bounding_boxes":
+        clouds = Pointclouds([T(x["points"][n, :length])
+                              for n, length in enumerate(x["lengths"])])
+        return {"boxes": _np(get_bounding_boxes(clouds))}
     if case.family == "chamfer":
         xs, ys = T(x["p1"], True), T(x["p2"], True)
         fx, fy = T(x["f1"], True), T(x["f2"], True)
@@ -322,8 +473,9 @@ def compare(case, got: Dict[str, np.ndarray], want: Dict[str, np.ndarray],
     with a prefix in ``scaled`` lies within that prefix's tolerance of its
     largest entry (the first prefix that matches counts); any other within
     ``TOL`` of each entry (relative past 1). ``scaled`` defaults to the
-    gradients, ``{"grad": TOL}``. A failure names ``case`` (a ``Case`` or a
-    label). Returns the largest absolute difference of a float output."""
+    gradients, ``{"grad": TOL}``. Entries that are not finite are equal,
+    NaN to NaN. A failure names ``case`` (a ``Case`` or a label). Returns
+    the largest absolute difference of a float output."""
     scaled = {"grad": TOL} if scaled is None else scaled
     if set(got) != set(want):
         _fail(case, f"{what}: outputs {sorted(got)} against {sorted(want)}")
@@ -338,7 +490,8 @@ def compare(case, got: Dict[str, np.ndarray], want: Dict[str, np.ndarray],
                 _fail(case, f"{what}: {key} differ at {bad}")
             continue
         fin = np.isfinite(b)
-        if not np.array_equal(fin, np.isfinite(a)) or not np.array_equal(a[~fin], b[~fin]):
+        if not np.array_equal(fin, np.isfinite(a)) or not np.array_equal(
+                a[~fin], b[~fin], equal_nan=True):
             _fail(case, f"{what}: {key} differ where they are not finite")
         if not fin.any():
             continue

@@ -339,3 +339,39 @@ def test_chamfer_input_errors():
             x.to("meta"), x.to("meta"), torch.zeros(2, dtype=torch.int64, device="meta"),
             torch.zeros(2, dtype=torch.int64, device="meta"), 2,
         )
+
+
+@pytest.mark.parametrize("point_reduction,batch_reduction",
+                         [("mean", "mean"), ("sum", None), (None, None)])
+def test_chamfer_empty_y_with_weights_and_features(point_reduction, batch_reduction):
+    """y with no point (x (2, 5, 3), y (2, 0, 3)) under weights [1, 2] and a
+    feature channel: losses, feature losses and every gradient as JAX gives
+    them. It used to raise in the nearest-neighbour twin's ``min`` over an
+    empty tile."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, 5, 3)).astype(np.float32)
+    y = np.zeros((2, 0, 3), np.float32)
+    fx = rng.normal(size=(2, 5, 2)).astype(np.float32)
+    fy = np.zeros((2, 0, 2), np.float32)
+    w = np.array([1.0, 2.0], np.float32)
+    kw = dict(weights=w, point_reduction=point_reduction, batch_reduction=batch_reduction,
+              feature_names=["n"])
+
+    def jtotal(a, b, fa, fb):
+        parts = _flat(jax_chamfer(a, b, x_features={"n": fa}, y_features={"n": fb}, **kw))
+        return sum(jnp.sum(p * (i + 1)) for i, p in enumerate(parts)), parts
+
+    (_, jparts), jgrads = jax.value_and_grad(jtotal, argnums=(0, 1, 2, 3), has_aux=True)(
+        *map(jnp.asarray, (x, y, fx, fy)))
+    ts = [_t(a, requires_grad=True) for a in (x, y, fx, fy)]
+    parts = _flat(ppt.chamfer_distance(ts[0], ts[1], x_features={"n": ts[2]},
+                                       y_features={"n": ts[3]},
+                                       **{**kw, "weights": _t(w)}))
+    assert len(parts) == len(jparts)
+    for p, jpart in zip(parts, jparts):
+        assert tuple(p.shape) == jpart.shape
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(jpart), rtol=TOL, atol=TOL)
+    sum((p * (i + 1)).sum() for i, p in enumerate(parts)).backward()
+    for t, jg in zip(ts, jgrads):
+        assert tuple(t.grad.shape) == jg.shape
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg), rtol=TOL, atol=TOL)

@@ -419,3 +419,27 @@ def test_sort_gates_and_unserved_requests_raise():
     for K, norm in ((1, 2), (4, 2), (100, 2), (16, 1)):
         with pytest.raises(ValueError, match="counting"):
             kk.knn_topk_cuda(p, p, l2, K, norm, instrument=True)
+
+
+@pytest.mark.parametrize("norm", [1, 2])
+def test_knn_backward_with_empty_p2(norm):
+    """p2 with no point (N=2, P1=5, P2=0, K=2): the forward pads every slot
+    (distance 0, index 0) and the backward gathers nothing: zero gradients
+    of p1's and p2's shapes, as JAX gives. It used to gather p2 at index 0
+    (``index 0 is out of bounds``; on the card a device-side assert)."""
+    p1 = np.random.default_rng(9).normal(size=(2, 5, 3)).astype(np.float32)
+    p2 = np.zeros((2, 0, 3), np.float32)
+    g = np.random.default_rng(10).normal(size=(2, 5, 2)).astype(np.float32)
+    ref, (jg1, jg2) = jax.value_and_grad(
+        lambda a, b: jnp.sum(g * jax_knn_points(a, b, K=2, norm=norm).dists),
+        argnums=(0, 1))(jnp.asarray(p1), jnp.asarray(p2))
+    a, b = _t(p1, requires_grad=True), _t(p2, requires_grad=True)
+    out = ppt.knn_points(a, b, K=2, norm=norm, return_nn=True)
+    (out.dists * _t(g)).sum().backward()
+    jout = jax_knn_points(jnp.asarray(p1), jnp.asarray(p2), K=2, norm=norm, return_nn=True)
+    np.testing.assert_array_equal(out.idx.numpy(), np.asarray(jout.idx))
+    np.testing.assert_array_equal(out.dists.detach().numpy(), np.asarray(jout.dists))
+    np.testing.assert_array_equal(out.knn.detach().numpy(), np.asarray(jout.knn))
+    assert a.grad.shape == (2, 5, 3) and b.grad.shape == (2, 0, 3)
+    np.testing.assert_array_equal(a.grad.numpy(), np.asarray(jg1))
+    assert float(ref) == 0.0 and not a.grad.any()

@@ -426,3 +426,117 @@ def test_ring_gradients_bit_equal_across_runs(meshes):
         runs.append([a.grad, b.grad, fa.grad, fb.grad])
     for g0, g1 in zip(*runs):
         assert torch.equal(g0, g1)
+
+
+def _ring_empty_leaves(fn, *arrays):
+    """``fn(*tensors)``'s outputs (a KNN tuple, a tensor, or a chamfer loss
+    with its features) as numpy arrays, then the gradients of a weighted
+    sum of them with respect to every input of floating point."""
+    ts = [_t(a, requires_grad=a.dtype == np.float32) for a in arrays]
+    out = fn(*ts)
+    if isinstance(out, tuple) and hasattr(out, "dists"):
+        leaves = [out.dists, out.idx] + ([out.knn] if out.knn is not None else [])
+    elif isinstance(out, tuple):
+        leaves = _chamfer_parts(out)
+    else:
+        leaves = [out]
+    total = sum((v * (i + 1)).sum() for i, v in enumerate(leaves) if v.is_floating_point())
+    inputs = [t for t in ts if t.requires_grad]
+    grads = torch.autograd.grad(total, inputs, allow_unused=True) if total.requires_grad \
+        else [None] * len(inputs)
+    return ([_np(v) for v in leaves]
+            + [_np(g) if g is not None else np.zeros(t.shape, np.float32)
+               for g, t in zip(grads, inputs)])
+
+
+def _chamfer_parts(out):
+    """The tensors of a chamfer result: ``(loss, features)``, or the ring's
+    ``loss`` alone (a tensor or, unreduced, a pair of tensors)."""
+    features = isinstance(out, tuple) and (out[1] is None or isinstance(out[1], dict))
+    loss, feats = out if features else (out, None)
+    parts = list(loss) if isinstance(loss, tuple) else [loss]
+    return parts + [feats[k] for k in sorted(feats or {})]
+
+
+_E = np.random.default_rng(12)
+_P1 = _E.normal(size=(2, 16, 3)).astype(np.float32)
+_P2 = _E.normal(size=(2, 16, 3)).astype(np.float32)
+_F1 = _E.normal(size=(2, 16, 2)).astype(np.float32)
+_NONE = np.zeros((2, 0, 3), np.float32)
+_IDX = np.zeros((2, 16, 3), np.int64)
+# (label, inputs, ring call, single-device call); each call takes the inputs
+# as tensors and the ring call also the port's eight-shard mesh.
+RING_EMPTY = [
+    ("knn P2=0 return_nn", (_P1, _NONE),
+     lambda m, a, b: ring_knn_points(a, b, K=2, mesh=m, return_nn=True),
+     lambda a, b: ppt.knn_points(a, b, K=2, return_nn=True)),
+    ("knn K=0", (_P1, _P2),
+     lambda m, a, b: ring_knn_points(a, b, K=0, mesh=m, return_nn=True),
+     lambda a, b: ppt.knn_points(a, b, K=0, return_nn=True)),
+    ("knn P1=0", (_NONE, _P2),
+     lambda m, a, b: ring_knn_points(a, b, K=2, norm=1, mesh=m, return_nn=True),
+     lambda a, b: ppt.knn_points(a, b, K=2, norm=1, return_nn=True)),
+    ("knn N=0", (_P1[:0], _P2[:0]),
+     lambda m, a, b: ring_knn_points(a, b, K=2, mesh=m),
+     lambda a, b: ppt.knn_points(a, b, K=2)),
+    ("gather P=0", (_NONE, _IDX),
+     lambda m, x, i: ring_knn_gather(x, i, mesh=m),
+     lambda x, i: ppt.knn_gather(x, i)),
+    ("gather K=0", (_P2, _IDX[..., :0]),
+     lambda m, x, i: ring_knn_gather(x, i, mesh=m),
+     lambda x, i: ppt.knn_gather(x, i)),
+    ("chamfer P2=0 single_directional", (_P1, _NONE),
+     lambda m, a, b: ring_chamfer_distance(a, b, single_directional=True, mesh=m),
+     lambda a, b: ppt.chamfer_distance(a, b, single_directional=True)),
+    ("chamfer P2=0 features", (_P1, _NONE, _F1, _NONE[..., :2]),
+     lambda m, a, b, fa, fb: ring_chamfer_distance(
+         a, b, x_features={"n": fa}, y_features={"n": fb}, feature_names=["n"],
+         weights=torch.tensor([1.0, 2.0]), mesh=m),
+     lambda a, b, fa, fb: ppt.chamfer_distance(
+         a, b, x_features={"n": fa}, y_features={"n": fb}, feature_names=["n"],
+         weights=torch.tensor([1.0, 2.0]))),
+    ("chamfer P1=0 unreduced", (_NONE, _P2),
+     lambda m, a, b: ring_chamfer_distance(a, b, point_reduction=None,
+                                           batch_reduction=None, norm=1, mesh=m),
+     lambda a, b: ppt.chamfer_distance(a, b, point_reduction=None,
+                                       batch_reduction=None, norm=1)),
+]
+
+
+@pytest.mark.parametrize("case", RING_EMPTY, ids=[c[0] for c in RING_EMPTY])
+def test_ring_empty_dimensions_match_single_device(meshes, case):
+    """Each ring entry point on an empty dimension or K = 0 against the
+    port's single-device op on the same inputs, whose semantics the ring
+    keeps: outputs and gradients of their shapes, indices equal, values
+    within 1e-5. JAX's ring crashes on most of these (an XLA sharding
+    assertion at K = 0, P1 = 0, N = 0 and in the KNN backward at P2 = 0; a
+    minimum over an empty array in the bidirectional chamfer); where it
+    returns, the next test holds the port's ring to it."""
+    _, tmesh = meshes
+    _, arrays, ring_fn, single_fn = case
+    got = _ring_empty_leaves(lambda *ts: ring_fn(tmesh, *ts), *arrays)
+    want = _ring_empty_leaves(single_fn, *arrays)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL)
+
+
+def test_ring_empty_dimensions_match_jax(meshes):
+    """Where JAX's ring returns on an empty dimension, the port's ring gives
+    its outputs: KNN with an empty y cloud and return_nn, the gather of an
+    empty value cloud, the single-directional chamfer with an empty y
+    cloud."""
+    jmesh, tmesh = meshes
+    ref = jax_ring_knn(_P1, _NONE, K=2, mesh=jmesh, return_nn=True)
+    out = ring_knn_points(_t(_P1), _t(_NONE), K=2, mesh=tmesh, return_nn=True)
+    _check_idx(ref.idx, out.idx)
+    _check_vals(ref.dists, out.dists)
+    _check_vals(ref.knn, out.knn)
+    ref = jax_ring_gather(_NONE, _IDX, mesh=jmesh)
+    out = ring_knn_gather(_t(_NONE), _t(_IDX), mesh=tmesh)
+    assert tuple(out.shape) == ref.shape
+    _check_vals(ref, out)
+    ref = jax_ring_chamfer(_P1, _NONE, single_directional=True, mesh=jmesh)
+    out = ring_chamfer_distance(_t(_P1), _t(_NONE), single_directional=True, mesh=tmesh)
+    _check_vals(ref, out)

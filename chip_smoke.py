@@ -50,10 +50,7 @@ set to 0 just before and read just after:
   ``sample_farthest_points`` on one cloud of 1,000,000 points (K=1024) and
   one of 4,000,000 points (K=512), which route to the two grid FPS kernels.
 
-A ``torch.profiler`` trace of one config 2 and one config 3 step gives the
-device's busy time beside the wall time (the idle share) and the longest
-kernels (``profile_step.device_share``). It then checks each path against
-the plain path on the card (config 3 and
+It then checks each path against the plain path on the card (config 3 and
 config 2 losses within rel 1e-5, gradients within 1e-5 of their largest
 entry, FPS and ball indices equal; the north-star KNN on a 4,096-query
 subset; the large-cloud FPS indices), two backward runs for bit-equality,
@@ -217,6 +214,28 @@ TOL = 1e-5  # values and gradients; indices must match exactly
 def require(cond, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+# The kernel wrappers, by the names of their launch counters
+# (``tracing``'s ``launch.<wrapper>``).
+WRAPPERS = ("knn_topk_cuda", "chamfer_nn_cuda", "scatter_add_rows", "scatter_add_k1",
+            "ball_query_cuda", "fps_batched", "fps_resident", "fps_streaming")
+
+
+def reset_launches() -> None:
+    """Every counter of the port's ``tracing`` back to 0, the launch
+    counters among them."""
+    from pytorch3d_pointops_tpu_torch import tracing
+
+    tracing.clear()
+
+
+def launch_counts(wrappers) -> dict:
+    """Each wrapper's launches since the last ``reset_launches()``."""
+    from pytorch3d_pointops_tpu_torch import tracing
+
+    got = tracing.counts("launch.")
+    return {w: got.get("launch." + w, 0) for w in wrappers}
 
 
 def gpu_line() -> str:
@@ -476,16 +495,15 @@ def phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,
                         .manual_seed(args.seed + 40), device=dev)
     c4_p2 = torch.randn((1, 1_000_000, 3), generator=torch.Generator(device=dev)
                         .manual_seed(args.seed + 41), device=dev)
-    c4_counters = (kk.knn_topk_cuda, ks.scatter_add_rows)
-    for c in c4_counters:
-        c.launches = 0
+    c4_counters = ("knn_topk_cuda", "scatter_add_rows")
+    reset_launches()
     # -- the config 4 main path: nothing but what a user would call --
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out4, g1, g2 = knn_step(c4_p1, c4_p2, None, None, 16)
     torch.cuda.synchronize()
     c4_ms = (time.perf_counter() - t0) * 1e3
-    launches4 = {c.__name__: c.launches for c in c4_counters}
+    launches4 = launch_counts(c4_counters)
     # -- end of the config 4 main path --
     print(f"  config 4 launches {json.dumps(launches4)}; fwd+bwd {c4_ms:.1f} ms "
           "(first call)")
@@ -609,9 +627,8 @@ def phase5(cases, plain_path, note_err):
     # the backward's scatter, every launch counter set to 0 just before.
     q = ns_p1.detach().requires_grad_(True)
     r = ns_p2.detach().requires_grad_(True)
-    c5 = (kk.knn_topk_cuda, ks.scatter_add_rows)
-    for c in c5:
-        c.launches = 0
+    c5 = ("knn_topk_cuda", "scatter_add_rows")
+    reset_launches()
     # -- the K=100 main path: nothing but what a user would call --
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -620,7 +637,7 @@ def phase5(cases, plain_path, note_err):
     out.dists.sum().backward()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
-    launches5 = {c.__name__: c.launches for c in c5}
+    launches5 = launch_counts(c5)
     # -- end of the K=100 main path --
     print(f"phase 5: north-star K=100 launches {json.dumps(launches5)} (sample pass, "
           f"2 seeded rounds, 2 gated repair launches; scatter); fwd+bwd {step_ms:.1f} ms "
@@ -696,10 +713,10 @@ def phase5(cases, plain_path, note_err):
     kk.kth_bounds = lambda p1, p2, l2, kqs, norm, s, rows=None: [
         torch.full(p1.shape[:2], -1.0, device=p1.device) for _ in kqs]
     try:
-        kk.knn_topk_cuda.launches = 0
+        reset_launches()
         with no_host_sync():
             forced = kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, 100, 2)
-        forced_launches = kk.knn_topk_cuda.launches
+        forced_launches = launch_counts(["knn_topk_cuda"])["knn_topk_cuda"]
     finally:
         kk.kth_bounds = real
     base = kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, 100, 2, sample_bound=False)
@@ -924,10 +941,8 @@ def phase6(T, rng, plain_path):
     print(f"phase 6: the ring on {mesh} (config 5 cut: batch 256 -> {N5}, >= 2 hosts "
           "-> 4 shards on one card, for one card and the script's run time)")
 
-    counters = (kk.knn_topk_cuda, kc.chamfer_nn_cuda, ks.scatter_add_rows,
-                ks.scatter_add_k1)
-    for c in counters:
-        c.launches = 0
+    counters = ("knn_topk_cuda", "chamfer_nn_cuda", "scatter_add_rows", "scatter_add_k1")
+    reset_launches()
     # -- the ring's main path: nothing but what a user would call --
     p = case5[0][0].clone().requires_grad_(True)
     lr = 0.2 * N5 * P5
@@ -941,23 +956,23 @@ def phase6(T, rng, plain_path):
         p.grad = None
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    parts["config 5 ring chamfer, 5 steps"] = {c.__name__: c.launches for c in counters}
+    parts["config 5 ring chamfer, 5 steps"] = launch_counts(counters)
     t0 = time.perf_counter()
     knn_step(ns_p1, ns_p2, None, None, 16, mesh)
     torch.cuda.synchronize()
     ring_k16_first = (time.perf_counter() - t0) * 1e3
-    parts["north-star ring knn K=16 fwd+bwd"] = {c.__name__: c.launches for c in counters}
+    parts["north-star ring knn K=16 fwd+bwd"] = launch_counts(counters)
     knn_step(ns_p1, ns_p2, None, None, 100, mesh, backward=False)
     torch.cuda.synchronize()
-    ring_launches = {c.__name__: c.launches for c in counters}
+    ring_launches = launch_counts(counters)
     # -- end of the ring's main path --
-    prev = {c.__name__: 0 for c in counters}
+    prev = dict.fromkeys(counters, 0)
     for label, now in list(parts.items()) + [("north-star ring knn K=100 fwd",
                                               ring_launches)]:
         print(f"  ring launches, {label}: "
               f"{json.dumps({k: now[k] - prev[k] for k in now})}")
         prev = now
-    require(all(ring_launches[c.__name__] > 0 for c in counters[:3]),
+    require(all(ring_launches[c] > 0 for c in counters[:3]),
             f"a kernel of the ring path never ran: {ring_launches}")
     d_cham = parts["config 5 ring chamfer, 5 steps"]
     require(d_cham["chamfer_nn_cuda"] == 5 * 16 and d_cham["knn_topk_cuda"] == 0,
@@ -1221,26 +1236,22 @@ def procs_worker(rank: int, tmp: str, device: str) -> None:
         require(all(r <= TOL for r in rels), f"rank {rank} {what}: losses {got} vs {want}")
         return max(rels)
 
-    counters = (kk.knn_topk_cuda, kc.chamfer_nn_cuda, ks.scatter_add_rows)
+    counters = ("knn_topk_cuda", "chamfer_nn_cuda", "scatter_add_rows")
     res = {"rank": rank, "transport": _ProcessRing(mesh, "sp", None).transport,
            "launches": {}, "errors": {}}
 
     # -- the main path: nothing but what a user would call --
-    for c in counters:
-        c.launches = 0
+    reset_launches()
     case5 = on_mesh(inputs["case5"])
     losses, g0, res["step_ms"] = procs_steps(case5[0][0], case5, mesh, inputs["lr"])
-    res["launches"]["config 5 ring chamfer, 5 steps"] = {
-        c.__name__: c.launches for c in counters}
+    res["launches"]["config 5 ring chamfer, 5 steps"] = launch_counts(counters)
     q, r, l1, l2, K, bwd = inputs["knn"]["north-star K=16"]
     ns16 = procs_knn(block(q), block(r), l1, l2, K, mesh, bwd)
-    res["launches"]["+ north-star ring knn K=16 fwd+bwd"] = {
-        c.__name__: c.launches for c in counters}
+    res["launches"]["+ north-star ring knn K=16 fwd+bwd"] = launch_counts(counters)
     q, r, l1, l2, K, bwd = inputs["knn"]["north-star K=100 (fwd)"]
     ns100 = procs_knn(block(q), block(r), l1, l2, K, mesh, bwd)
     sync(dev)
-    res["launches"]["+ north-star ring knn K=100 fwd"] = {
-        c.__name__: c.launches for c in counters}
+    res["launches"]["+ north-star ring knn K=100 fwd"] = launch_counts(counters)
     # -- end of the main path --
 
     rlosses, rg0, _ = ref["steps"]
@@ -1464,17 +1475,16 @@ def phase8(plain_path, wrappers, dev):
         return out, time.perf_counter() - t0
 
     t_all = time.perf_counter()
-    results, totals = {}, {w.__name__: 0 for w in wrappers}
+    results, totals = {}, dict.fromkeys(wrappers, 0)
     for name, needs in EXAMPLE_KERNELS.items():
-        for w in wrappers:
-            w.launches = 0
+        reset_launches()
         results[name], secs = run(name)
-        launches = {w.__name__: w.launches for w in wrappers if w.launches}
-        for k, v in launches.items():
+        fired = {k: v for k, v in launch_counts(wrappers).items() if v}
+        for k, v in fired.items():
             totals[k] += v
-        print(f"  {name}: {secs:.1f} s, launches {json.dumps(launches)}")
-        require(all(launches.get(k, 0) > 0 for k in needs),
-                f"example {name} did not launch {[k for k in needs if not launches.get(k)]}")
+        print(f"  {name}: {secs:.1f} s, launches {json.dumps(fired)}")
+        require(all(fired.get(k, 0) > 0 for k in needs),
+                f"example {name} did not launch {[k for k in needs if not fired.get(k)]}")
     for name in EXAMPLES_PLAIN:
         with plain_path():
             plain, secs = run(name)
@@ -1513,14 +1523,13 @@ def phase9(wrappers, dev):
     t0 = time.perf_counter()
     native.load()
     built = time.perf_counter() - t0
-    cases = {w.__name__: 0 for w in wrappers}
+    cases = dict.fromkeys(wrappers, 0)
     worst, held = {}, 0
     for case in sweep.cases(SWEEP_CASES):
-        for w in wrappers:
-            w.launches = 0
+        reset_launches()
         got = sweep.run_case(case, dev)
-        for w in wrappers:
-            cases[w.__name__] += w.launches > 0
+        for w, n in launch_counts(wrappers).items():
+            cases[w] += n > 0
         err = sweep.compare(case, got, sweep.run_case(case, "cpu"))
         worst[case.family] = max(worst.get(case.family, 0.0), err)
         held += sweep.check_native(case, got)
@@ -1530,8 +1539,7 @@ def phase9(wrappers, dev):
           f"gradients within {TOL} of their largest entry), {held} of them to the host "
           f"library; largest value differences by family {json.dumps(worst)}; cases "
           f"that launched each kernel {json.dumps(cases)}")
-    require(all(cases[w.__name__] for w in wrappers
-                if w.__name__ not in ("fps_resident", "fps_streaming")),
+    require(all(cases[w] for w in wrappers if w not in ("fps_resident", "fps_streaming")),
             f"a kernel the sweep covers never ran: {cases}")
     return cases
 
@@ -1568,11 +1576,10 @@ def phase10(wrappers, dev):
     from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
 
     t0 = time.perf_counter()
-    cases = {w.__name__: 0 for w in wrappers}
+    cases = dict.fromkeys(wrappers, 0)
     by_expect, refusals, worst = {}, {}, 0.0
     for case in sweep.empty_cases():
-        for w in wrappers:
-            w.launches = 0
+        reset_launches()
         if case.expect == "raises":
             refusals[str(case)] = [refused(case, dev), refused(case, "cpu")]
         else:
@@ -1581,7 +1588,7 @@ def phase10(wrappers, dev):
             worst = max(worst, sweep.compare(case, got, sweep.run_case(case, "cpu"),
                                              "card vs CPU"))
         torch.cuda.synchronize()
-        fired = {w.__name__: w.launches for w in wrappers if w.launches}
+        fired = {k: v for k, v in launch_counts(wrappers).items() if v}
         for name in fired:
             cases[name] += 1
         if any(case.p.get(axis) == 0 for axis in EMPTY_AXES):
@@ -1659,7 +1666,6 @@ def main() -> int:
     from pytorch3d_pointops_tpu_torch.kernels import knn as kk
     from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
     from pytorch3d_pointops_tpu_torch.ops.knn import _apply_pad_conventions
-    from pytorch3d_pointops_tpu_torch.profile_step import device_share
     from pytorch3d_pointops_tpu_torch.tune_scatter import library_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2115,10 +2121,8 @@ def main() -> int:
     ns_p1 = T(rng.normal(size=(1, 100000, 3)).astype(np.float32))
     ns_p2 = T(rng.normal(size=(1, 100000, 3)).astype(np.float32))
 
-    counters = (kk.knn_topk_cuda, kc.chamfer_nn_cuda, ks.scatter_add_rows,
-                ks.scatter_add_k1)
-    for c in counters:
-        c.launches = 0
+    counters = ("knn_topk_cuda", "chamfer_nn_cuda", "scatter_add_rows", "scatter_add_k1")
+    reset_launches()
     # -- the main path: nothing but what a user would call --
     p = src0.points_padded().clone().requires_grad_(True)
     lr = 0.2 * N3 * P3
@@ -2136,7 +2140,7 @@ def main() -> int:
                                      pc1.num_points_per_cloud(),
                                      pc2.num_points_per_cloud(), 8), reps=10)
     ns_ms = wall_ms(lambda: knn_step(ns_p1, ns_p2, None, None, 16), reps=3)
-    launches = {c.__name__: c.launches for c in counters}
+    launches = launch_counts(counters)
     # -- end of the main path --
     print(f"phase 3: main-path launches {json.dumps(launches)}")
     require(all(v > 0 for v in launches.values()), "a kernel of the path never ran")
@@ -2242,10 +2246,9 @@ def main() -> int:
         loss.backward()
         return loss, fidx, g, x.grad
 
-    counters2 = (kf.fps_batched, kf.fps_resident, kf.fps_streaming,
-                 kb.ball_query_cuda, ks.scatter_add_rows)
-    for c in (*counters, *counters2):
-        c.launches = 0
+    counters2 = ("fps_batched", "fps_resident", "fps_streaming", "ball_query_cuda",
+                 "scatter_add_rows")
+    reset_launches()
     # -- the config 2 main path: nothing but what a user would call --
     group_ms = []
     for _ in range(5):
@@ -2262,7 +2265,7 @@ def main() -> int:
         _, big_idx[label] = ppt.sample_farthest_points(cloud, K=K)
         torch.cuda.synchronize()
         big_ms[label] = (time.perf_counter() - t0) * 1e3
-    launches2 = {c.__name__: c.launches for c in counters2}
+    launches2 = launch_counts(counters2)
     # -- end of the config 2 main path --
     print(f"phase 3b: config 2 launches {json.dumps(launches2)}")
     require(all(v > 0 for v in launches2.values()),
@@ -2273,12 +2276,6 @@ def main() -> int:
     print(f"  large-cloud FPS ms (one call each, first call): {json.dumps(big_ms)}")
     require(torch.isfinite(grad2).all() and grad2.abs().max() > 0,
             "config 2 gradient not finite or all zero")
-
-    # Device time of one config 2 and one config 3 step (torch.profiler): the
-    # sum of the step's device activities beside its wall time, the share of
-    # the wall time the device was idle, and the longest kernels.
-    device_share("config 2", lambda: group_step(pts2))
-    device_share("config 3", lambda: cham_step(p.detach().clone().requires_grad_(True)))
 
     # One config 2 step against the plain path, and two bit-equal backwards.
     loss2b, fidx2b, g2b, grad2b = group_step(pts2)
@@ -2348,11 +2345,8 @@ def main() -> int:
     procs_launches = phase7(ring_inputs, ring_times, dev)
 
     # ---------------- phases 8 and 9: the examples, the seeded sweep ----------------
-    wrappers = (kk.knn_topk_cuda, kc.chamfer_nn_cuda, ks.scatter_add_rows,
-                ks.scatter_add_k1, kb.ball_query_cuda, kf.fps_batched, kf.fps_resident,
-                kf.fps_streaming)
-    examples_launches = phase8(plain_path, wrappers, dev)
-    sweep_cases = phase9(wrappers, dev)
+    examples_launches = phase8(plain_path, WRAPPERS, dev)
+    sweep_cases = phase9(WRAPPERS, dev)
 
     # ---------------- kernel times at the main path's shapes ----------------
     records = []
@@ -2558,7 +2552,7 @@ def main() -> int:
           "1,000,000 K=1024; fps_streaming 1 x 4,000,000 K=512; all D=3")
 
     # ---------------- phase 10: empty dimensions, after every other phase ----------------
-    empty_cases = phase10(wrappers, dev)
+    empty_cases = phase10(WRAPPERS, dev)
 
     # The ring's launches of the three kernels its hops run (phase 6), and
     # rank 0's on the ring across processes (phase 7); every kernel's

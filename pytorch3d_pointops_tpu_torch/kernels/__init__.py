@@ -1,8 +1,8 @@
 """Hand-written Hopper kernels (``csrc/*.cu``), each beside its plain
 PyTorch twin: KNN top-K, bidirectional chamfer NN, the deterministic
 scatter, ball query and farthest point sampling. A wrapper launches its
-kernel on CUDA tensors and counts the launch in its ``launches`` attribute;
-on CPU tensors it runs the twin."""
+kernel on CUDA tensors and counts each launch in ``tracing``'s
+``launch.<wrapper>`` counter; on CPU tensors it runs the twin."""
 
 from .ball_query import ball_query_cuda, ball_query_plain, ball_query_points
 from .chamfer import chamfer_nn_bidirectional, chamfer_nn_cuda, chamfer_nn_plain

@@ -24,7 +24,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, tracing
 from .knn import pairwise_dist
 
 # Above this many N*P1*P2 distance elements the plain version streams P2 in
@@ -122,13 +122,11 @@ def ball_query_cuda(p1, p2, lengths1, lengths2, K: int, r2: float):
                  dists.data_ptr(), idx.data_ptr(), _build.stream_ptr(p1.device)),
         "ball_query",
     )
-    ball_query_cuda.launches += 1
+    tracing.launch("ball_query_cuda")
     return dists, idx
 
 
-ball_query_cuda.launches = 0
-
-
+@tracing.spanned("ball_query_points")
 def ball_query_points(p1, p2, lengths1, lengths2, K: int, r2: float):
     """The first K points of ``p2`` within squared radius ``r2`` of every
     query in ``p1``: the CUDA kernel on CUDA tensors, the plain version on

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, tracing
 from .knn import pairwise_dist
 
 _INF = float("inf")
@@ -110,13 +110,11 @@ def chamfer_nn_cuda(x, y, lengths1, lengths2, norm: int):
                  d_yx.data_ptr(), i_yx.data_ptr(), _build.stream_ptr(dev)),
         "chamfer_nn_bidir",
     )
-    chamfer_nn_cuda.launches += 1
+    tracing.launch("chamfer_nn_cuda")
     return d_xy, i_xy, d_yx, i_yx
 
 
-chamfer_nn_cuda.launches = 0
-
-
+@tracing.spanned("chamfer_nn")
 def chamfer_nn_bidirectional(x, y, lengths1, lengths2, norm: int):
     """Both K=1 nearest-neighbour directions: the CUDA kernel on CUDA
     tensors, the plain version on CPU tensors."""

@@ -39,7 +39,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _build
+from .. import _build, tracing
 
 _INF = float("inf")
 
@@ -309,10 +309,11 @@ def _launch(mode, points, lengths, K, starts, max_K, plan=None):
     return out
 
 
+@tracing.spanned("fps")
 def _dispatch(wrapper, mode, points, lengths, K, starts, max_K, plan=None):
     if points.is_cuda:
         out = _launch(mode, points, lengths, K, starts, max_K, plan)
-        wrapper.launches += 1
+        tracing.launch(wrapper)
         return out
     if points.device.type == "cpu":
         _check_inputs(points, lengths, K, starts, max_K)
@@ -324,7 +325,7 @@ def fps_batched(points, lengths, K, starts, max_K: int, *, _plan=None):
     """One block per cloud (clouds of up to ``fps_limits(D, dev)[0]``
     points). ``_plan`` forces a ``BlockPlan`` (``tune_fps.py``,
     ``chip_smoke.py``)."""
-    return _dispatch(fps_batched, "block", points, lengths, K, starts, max_K,
+    return _dispatch("fps_batched", "block", points, lengths, K, starts, max_K,
                      _plan)
 
 
@@ -332,7 +333,7 @@ def fps_resident(points, lengths, K, starts, max_K: int, *, _plan=None):
     """Every SM on one cloud at a time, the cloud on chip (clouds of up to
     ``fps_limits(D, dev)[1]`` points). ``_plan`` forces a launch plan
     (``tune_fps.py``, ``chip_smoke.py``)."""
-    return _dispatch(fps_resident, "resident", points, lengths, K, starts, max_K,
+    return _dispatch("fps_resident", "resident", points, lengths, K, starts, max_K,
                      _plan)
 
 
@@ -340,10 +341,5 @@ def fps_streaming(points, lengths, K, starts, max_K: int, *, _plan=None):
     """Every SM on one cloud at a time, any size: what the chip cannot hold
     is streamed from device memory every round (``_grid_plan``'s tiers).
     ``_plan`` forces a launch plan (``tune_fps.py``, ``chip_smoke.py``)."""
-    return _dispatch(fps_streaming, "streaming", points, lengths, K, starts, max_K,
+    return _dispatch("fps_streaming", "streaming", points, lengths, K, starts, max_K,
                      _plan)
-
-
-fps_batched.launches = 0
-fps_resident.launches = 0
-fps_streaming.launches = 0

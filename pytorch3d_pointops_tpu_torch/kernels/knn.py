@@ -56,7 +56,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .. import _build
+from .. import _build, tracing
 from . import spatial_sort as _ss
 
 logger = logging.getLogger(__name__)
@@ -636,8 +636,11 @@ def _with_sorting(p1, p2, lengths2, sort_queries, sort_candidates, topk):
     Morton order (``rows``, (N, P1) int64, else None), as asked."""
     if p1.shape[1] == 0 or p2.shape[1] == 0:  # nothing to order
         return topk(p1, p2, None, None)
-    order = candidate_order(p1, p2, lengths2) if sort_candidates else None
-    rows = _ss.morton_order(p1) if sort_queries else None
+    order = rows = None
+    if sort_candidates or sort_queries:
+        with tracing.span("knn.sort"):
+            order = candidate_order(p1, p2, lengths2) if sort_candidates else None
+            rows = _ss.morton_order(p1) if sort_queries else None
     return topk(p1, p2 if order is None else order.points, order, rows)
 
 
@@ -698,11 +701,13 @@ def _seeded(launch, K, P2, lengths2, seeds):
     unseeded into the same outputs, which leaves the unseeded result; then
     every ``SENT`` slot left (past lengths2 or past the last round's K) is
     set to (inf, 0), as unseeded."""
-    ds, idxs = _chain(launch, K, P2, seeds)
-    _chain(launch, K, P2, None, repair_gate(idxs, lengths2, K), (ds, idxs))
-    d, i = _join(ds, idxs, K)
-    sent = i == SENT
-    return torch.where(sent, _INF, d), torch.where(sent, 0, i)
+    with tracing.span("knn.rounds"):
+        ds, idxs = _chain(launch, K, P2, seeds)
+    with tracing.span("knn.repair"):
+        _chain(launch, K, P2, None, repair_gate(idxs, lengths2, K), (ds, idxs))
+        d, i = _join(ds, idxs, K)
+        sent = i == SENT
+        return torch.where(sent, _INF, d), torch.where(sent, 0, i)
 
 
 def _launcher(p1, p2, lengths2, norm, plan: Plan, rows=None, cand_ids=None,
@@ -732,7 +737,7 @@ def _launcher(p1, p2, lengths2, norm, plan: Plan, rows=None, cand_ids=None,
                out[0].data_ptr(), out[1].data_ptr(), stream),
             "knn_topk",
         )
-        knn_topk_cuda.launches += 1
+        tracing.launch("knn_topk_cuda")
         return out
 
     return launch
@@ -752,8 +757,10 @@ def _plain_launcher(p1, p2, lengths2, norm, ids=None):
     """``launch`` for ``_chain`` on the plain twin, queries in their given
     order; a gate is read on the host (these are not CUDA tensors)."""
     def launch(k, lb, seed, gate, out):
-        if gate is not None and not bool(gate):
-            return out
+        if gate is not None:
+            tracing.sync("knn.plain_gate")
+            if not bool(gate):
+                return out
         d, i = _plain_round(p1, p2, lengths2, k, norm, ids, lb, seed)
         if out is None:
             return d, i
@@ -776,13 +783,20 @@ def _topk(p1, p2, lengths2, K, norm, make_launch, sort_queries, sort_candidates,
         launch = make_launch(q, ref, order, rows)
         if ub is not None:
             u = ub if rows is None else torch.gather(ub, 1, rows)
-            d, i = _join(*_chain(launch, K, P2, [seed_of(u)]), K)
+            with tracing.span("knn.rounds"):
+                d, i = _join(*_chain(launch, K, P2, [seed_of(u)]), K)
         elif s is not None:
-            taus = kth_bounds(q, ref, lengths2, _quantiles(K, P2), norm, s, rows)
-            d, i = _seeded(launch, K, P2, lengths2, [seed_of(t) for t in taus])
+            with tracing.span("knn.bounds"):
+                taus = kth_bounds(q, ref, lengths2, _quantiles(K, P2), norm, s, rows)
+                seeds = [seed_of(t) for t in taus]
+            d, i = _seeded(launch, K, P2, lengths2, seeds)
         else:
-            d, i = _join(*_chain(launch, K, P2), K)
-        return (d, i) if rows is None else (_unpermute(d, rows), _unpermute(i, rows))
+            with tracing.span("knn.rounds"):
+                d, i = _join(*_chain(launch, K, P2), K)
+        if rows is None:
+            return d, i
+        with tracing.span("knn.sort"):
+            return _unpermute(d, rows), _unpermute(i, rows)
 
     return _with_sorting(p1, p2, lengths2, sort_queries, sort_candidates, topk)
 
@@ -862,9 +876,7 @@ def knn_topk_cuda(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
     return (d, i, counts) if instrument else (d, i)
 
 
-knn_topk_cuda.launches = 0
-
-
+@tracing.spanned("knn_topk")
 def knn_topk(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
              sort_candidates=None, sample_bound=None, sample_s=None, ub=None):
     """The K nearest of the first ``lengths2[n]`` points of ``p2`` for every

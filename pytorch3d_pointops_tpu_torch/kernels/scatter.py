@@ -34,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _build
+from .. import _build, tracing
 
 _INT31 = 2**31 - 1
 _MAX_DIGIT_BITS = 11  # csrc/scatter.cu kMaxWidth
@@ -134,6 +134,7 @@ def _flat_keys(idx, P2):
     """The kernels' flat keys of idx (N, E) on the CPU: n * P2 + idx, and
     N * P2 for a skipped entry."""
     N = idx.shape[0]
+    tracing.sync("scatter.plain_keys")
     idx = idx.to(torch.int64).cpu()
     keys = torch.arange(N)[:, None] * P2 + idx
     return torch.where((idx >= 0) & (idx < P2), keys, N * P2).reshape(-1)
@@ -246,26 +247,23 @@ def _launch(idx, contrib, P2: int, events=None, plan: Plan | None = None):
     return out
 
 
+@tracing.spanned("scatter")
 def _dispatch(wrapper, idx, contrib, P2):
     if idx.device.type == "cpu":
         _check_inputs(idx, contrib, P2)
         return scatter_add_plain(idx, contrib, P2)
     out = _launch(idx, contrib, P2)
-    wrapper.launches += 1
+    tracing.launch(wrapper)
     return out
 
 
 def scatter_add_rows(idx, contrib, P2: int):
     """Deterministic ``out[n, idx[n, e]] += contrib[n, e]`` for the KNN
     backward: idx (N, E) int64, contrib (N, E, C) -> (N, P2, C)."""
-    return _dispatch(scatter_add_rows, idx, contrib, P2)
+    return _dispatch("scatter_add_rows", idx, contrib, P2)
 
 
 def scatter_add_k1(idx, contrib, P2: int):
     """The same scatter for the chamfer K=1 backward: idx (N, P1)
     int64, contrib (N, P1, C) -> (N, P2, C)."""
-    return _dispatch(scatter_add_k1, idx, contrib, P2)
-
-
-scatter_add_rows.launches = 0
-scatter_add_k1.launches = 0
+    return _dispatch("scatter_add_k1", idx, contrib, P2)

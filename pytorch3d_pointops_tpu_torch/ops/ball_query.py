@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from ..kernels import ball_query as _bq_kernel
 from .knn import _KNN, _lengths, knn_backward
 from .utils import masked_gather
@@ -35,6 +36,7 @@ class _BallQuery(torch.autograd.Function):
         return dists, idx
 
     @staticmethod
+    @tracing.spanned("BallQuery.bwd")
     def backward(ctx, grad_dists, _grad_idx):
         p1, p2, lengths1, lengths2, idx = ctx.saved_tensors
         grad_p1, grad_p2 = knn_backward(
@@ -44,6 +46,7 @@ class _BallQuery(torch.autograd.Function):
         return grad_p1, grad_p2, None, None, None, None
 
 
+@tracing.spanned("ball_query")
 def ball_query(
     p1: torch.Tensor,
     p2: torch.Tensor,

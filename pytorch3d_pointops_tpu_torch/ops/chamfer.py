@@ -21,6 +21,7 @@ from typing import Optional, Union
 
 import torch
 
+from .. import tracing
 from ..kernels import chamfer as _chamfer_kernel
 from ..kernels import scatter as _scatter
 from ..structures.pointclouds import Pointclouds
@@ -144,6 +145,7 @@ class _NNBidir(torch.autograd.Function):
         return d1[..., 0], i1, d2[..., 0], i2
 
     @staticmethod
+    @tracing.spanned("NNBidir.bwd")
     def backward(ctx, gd1, _gi1, gd2, _gi2):
         x, y, x_lengths, y_lengths, i1, i2 = ctx.saved_tensors
         gx_a, gy_a = _k1_backward(x, y, x_lengths, y_lengths, i1, ctx.norm, gd1)
@@ -235,8 +237,10 @@ def _chamfer_distance_single_direction(
     if weights is not None:
         if weights.shape[0] != N:
             raise ValueError("weights must be of shape (N,).")
+        tracing.sync("chamfer.weights_sign")
         if bool((weights < 0).any()):
             raise ValueError("weights cannot be negative.")
+        tracing.sync("chamfer.weights_sum")
         if float(sums.batch(weights)) == 0.0:
             # Zero-sum early-out: zero losses of the shapes the normal path
             # gives, with the gradient to x kept.
@@ -341,6 +345,7 @@ def _apply_batch_reduction(cham_x, cham_features_x, weights, batch_reduction,
     return (cham_x, cham_features_x)
 
 
+@tracing.spanned("chamfer_distance")
 def chamfer_distance(
     x,
     y,

@@ -19,6 +19,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels import fps as _fps
 from .knn import _lengths
 from .utils import masked_gather
@@ -35,7 +36,10 @@ def _normalize_K(K, N: int, device) -> Tuple[torch.Tensor, int]:
     if K_t.shape[0] != N:
         raise ValueError("K and points must have the same batch dimension")
     K_t = K_t.to(device)
-    max_K = int(K_t.max()) if K_t.numel() else 0
+    if not K_t.numel():
+        return K_t, 0
+    tracing.sync("fps.max_k")
+    max_K = int(K_t.max())
     return K_t, max(max_K, 0)
 
 
@@ -85,6 +89,7 @@ def _prepare(points, lengths, K, random_start_point, generator):
     return lengths, K_t, max_K, starts
 
 
+@tracing.spanned("sample_farthest_points")
 def sample_farthest_points(
     points: torch.Tensor,
     lengths: Optional[torch.Tensor] = None,
@@ -121,6 +126,7 @@ def sample_farthest_points(
     return masked_gather(points, idx), idx
 
 
+@tracing.spanned("sample_farthest_points_naive")
 def sample_farthest_points_naive(
     points: torch.Tensor,
     lengths: Optional[torch.Tensor] = None,
@@ -134,6 +140,7 @@ def sample_farthest_points_naive(
     lengths, K_t, max_K, starts = _prepare(
         points, lengths, K, random_start_point, generator
     )
+    tracing.sync("fps_naive.inputs", 4)
     pts = points.detach().cpu().numpy()
     lengths_np = lengths.cpu().numpy()
     K_np = K_t.cpu().numpy()

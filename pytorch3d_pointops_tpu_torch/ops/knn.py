@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from ..kernels import knn as _knn_kernel
 from ..kernels import scatter as _scatter
 
@@ -109,6 +110,7 @@ class _KnnPoints(torch.autograd.Function):
         return dists, idx
 
     @staticmethod
+    @tracing.spanned("KnnPoints.bwd")
     def backward(ctx, grad_dists, _grad_idx):
         p1, p2, lengths1, lengths2, idx = ctx.saved_tensors
         grad_p1, grad_p2 = knn_backward(
@@ -123,6 +125,7 @@ def _lengths(lengths, N, P, device):
     return torch.as_tensor(lengths, device=device).to(torch.int64).contiguous()
 
 
+@tracing.spanned("knn_points")
 def knn_points(
     p1: torch.Tensor,
     p2: torch.Tensor,
@@ -220,6 +223,7 @@ class _Gather(torch.autograd.Function):
         )
 
     @staticmethod
+    @tracing.spanned("Gather.bwd")
     def backward(ctx, grad_out):
         (scatter_idx,) = ctx.saved_tensors
         grad_x = _scatter_rows(
@@ -228,6 +232,7 @@ class _Gather(torch.autograd.Function):
         return grad_x, None, None
 
 
+@tracing.spanned("knn_gather")
 def knn_gather(
     x: torch.Tensor, idx: torch.Tensor, lengths: Optional[torch.Tensor] = None
 ) -> torch.Tensor:

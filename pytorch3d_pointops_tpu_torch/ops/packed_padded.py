@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
+
 
 def _packed_to_padded_2d(inputs: torch.Tensor, first_idxs: torch.Tensor,
                          max_size: int) -> torch.Tensor:
@@ -45,6 +47,7 @@ class _PackedToPadded(torch.autograd.Function):
         return _packed_to_padded_2d(inputs, first_idxs, max_size)
 
     @staticmethod
+    @tracing.spanned("PackedToPadded.bwd")
     def backward(ctx, grad_out):
         (first_idxs,) = ctx.saved_tensors
         return _padded_to_packed_2d(grad_out, first_idxs, ctx.num_inputs), None, None
@@ -58,6 +61,7 @@ class _PaddedToPacked(torch.autograd.Function):
         return _padded_to_packed_2d(inputs, first_idxs, num_inputs)
 
     @staticmethod
+    @tracing.spanned("PaddedToPacked.bwd")
     def backward(ctx, grad_out):
         (first_idxs,) = ctx.saved_tensors
         return _packed_to_padded_2d(grad_out, first_idxs, ctx.max_size), None, None
@@ -67,6 +71,7 @@ def _first_idxs(first_idxs, device) -> torch.Tensor:
     return torch.as_tensor(first_idxs, device=device).to(torch.int64).contiguous()
 
 
+@tracing.spanned("packed_to_padded")
 def packed_to_padded(inputs: torch.Tensor, first_idxs, max_size: int) -> torch.Tensor:
     """Convert a packed (F,) or (F, ...) tensor to padded (N, max_size, ...).
 
@@ -92,6 +97,7 @@ def packed_to_padded(inputs: torch.Tensor, first_idxs, max_size: int) -> torch.T
     return out.reshape(*out.shape[:2], *input_shape[1:])
 
 
+@tracing.spanned("padded_to_packed")
 def padded_to_packed(inputs: torch.Tensor, first_idxs, num_inputs: int,
                      max_size_dim: int = 1) -> torch.Tensor:
     """Convert a padded (N, ..., max_size, ...) tensor to packed (F, ...).

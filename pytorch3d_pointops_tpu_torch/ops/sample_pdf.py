@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
+
 
 def _uniform_quantiles(batch_shape, n_samples: int, det: bool,
                        generator: Optional[torch.Generator],
@@ -51,6 +53,7 @@ def _prepare(bins, weights):
     return bins, weights, batch_shape, n_bins
 
 
+@tracing.spanned("sample_pdf")
 def sample_pdf(
     bins: torch.Tensor,
     weights: torch.Tensor,
@@ -99,6 +102,7 @@ def sample_pdf(
     )
 
 
+@tracing.spanned("sample_pdf_python")
 def sample_pdf_python(
     bins: torch.Tensor,
     weights: torch.Tensor,

@@ -13,9 +13,11 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from .. import tracing
 from .knn import _Gather, knn_points
 
 
+@tracing.spanned("masked_gather")
 def masked_gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather rows of ``points`` at ``idx``, where ``idx == -1`` marks padding:
     padded outputs are zero rows.
@@ -43,6 +45,7 @@ def masked_gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(mask[..., None], 0.0, gathered.reshape(*idx.shape, D))
 
 
+@tracing.spanned("wmean")
 def wmean(
     x: torch.Tensor,
     weight: Optional[torch.Tensor] = None,
@@ -64,6 +67,7 @@ def wmean(
     return num / den.clamp(min=eps)
 
 
+@tracing.spanned("get_point_covariances")
 def get_point_covariances(
     points_padded: torch.Tensor,
     num_points_per_cloud: torch.Tensor,

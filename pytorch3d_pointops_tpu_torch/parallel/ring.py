@@ -54,6 +54,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from .. import tracing
 from ..kernels import chamfer as _chamfer_kernel
 from ..kernels import knn as _knn_kernel
 from ..kernels import scatter as _scatter
@@ -240,6 +241,7 @@ class _ProcessRing(_Ring):
         sizes = torch.tensor([s for t in tensors for s in (t.shape[0], t.shape[1])],
                              device=self.device)
         hi = self.all_reduce(torch.cat([sizes, -sizes]), self.group, dist.ReduceOp.MAX)
+        tracing.sync("ring.check_blocks")
         if not torch.equal(hi[:len(sizes)], -hi[len(sizes):]):
             raise ValueError(f"the blocks' (batch, points) sizes differ between the "
                              f"ring's processes: at most {hi[:len(sizes)].tolist()}, "
@@ -820,6 +822,7 @@ def ring_chamfer_distance(
     y_lengths = ring.lengths(y_lengths, N, P2, x.device)
     if weights is not None:
         weights = torch.as_tensor(weights, device=x.device)
+        tracing.sync("ring.weights_sign")
         if bool((weights < 0).any()):
             # Checked on the global weights, so every process raises.
             raise ValueError("weights cannot be negative.")

@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import tracing
 from . import utils as struct_utils
 
 
@@ -130,6 +131,7 @@ class Pointclouds:
                     lengths, device, torch.int64
                 )
                 if self._N > 0:
+                    tracing.sync("pointclouds.equisized")
                     self.equisized = (
                         len(set(self._num_points_per_cloud.tolist())) == 1
                     )
@@ -176,6 +178,7 @@ class Pointclouds:
             raise ValueError("Points and auxiliary input must be the same length.")
         C = None
         fixed = []
+        tracing.sync("pointclouds.feature_list")
         for p_i, d in zip(self._num_points_per_cloud.tolist(), data):
             if d is not None and np.ndim(d) == 2:
                 d = _to_tensor(d, self.device)
@@ -218,6 +221,7 @@ class Pointclouds:
     def isempty(self) -> bool:
         if self._N == 0:
             return True
+        tracing.sync("pointclouds.isempty")
         return bool((self._num_points_per_cloud == 0).all())
 
     def num_points_per_cloud(self) -> torch.Tensor:
@@ -240,6 +244,7 @@ class Pointclouds:
     # ------------------------------------------------------------------
     def points_list(self) -> List[torch.Tensor]:
         if self._points_list is None:
+            tracing.sync("pointclouds.list")
             lengths = self._num_points_per_cloud.tolist()
             self._points_list = [
                 self._points_padded[i, : lengths[i]] for i in range(self._N)
@@ -250,6 +255,7 @@ class Pointclouds:
         if name not in self._features_list:
             if name not in self._features_padded:
                 return None
+            tracing.sync("pointclouds.list")
             lengths = self._num_points_per_cloud.tolist()
             self._features_list[name] = [
                 self._features_padded[name][i, : lengths[i]]
@@ -271,7 +277,11 @@ class Pointclouds:
             return
         dev = self.device
         lengths = self._num_points_per_cloud
-        if self._N == 0 or int(lengths.sum()) == 0:
+        total = 0
+        if self._N:
+            tracing.sync("pointclouds.packed")
+            total = int(lengths.sum())
+        if total == 0:
             self._points_packed = torch.zeros((0, 3), device=dev)
             self._packed_to_cloud_idx = torch.zeros((0,), dtype=torch.int64, device=dev)
             self._cloud_to_packed_first_idx = torch.zeros(
@@ -281,7 +291,7 @@ class Pointclouds:
             return
         self._cloud_to_packed_first_idx = torch.cumsum(lengths, 0) - lengths
         self._packed_to_cloud_idx = torch.repeat_interleave(
-            torch.arange(self._N, device=dev), lengths
+            torch.arange(self._N, device=dev), lengths, output_size=total
         )
         gather_idx = self.padded_to_packed_idx()
         self._points_packed = self._points_padded.reshape(-1, 3)[gather_idx]
@@ -313,6 +323,7 @@ class Pointclouds:
     def padded_to_packed_idx(self) -> torch.Tensor:
         """Indices into the flattened padded points giving the packed points."""
         if self._padded_to_packed_idx is None:
+            tracing.sync("pointclouds.packed_idx")
             self._padded_to_packed_idx = torch.cat(
                 [
                     torch.arange(v, device=self.device) + i * self._P
@@ -334,6 +345,8 @@ class Pointclouds:
         elif isinstance(index, list):
             idx_list = [int(i) for i in index]
         elif isinstance(index, (torch.Tensor, np.ndarray)):
+            if isinstance(index, torch.Tensor):
+                tracing.sync("pointclouds.getitem")
             index = np.asarray(index.cpu() if isinstance(index, torch.Tensor) else index)
             if index.ndim != 1 or np.issubdtype(index.dtype, np.floating):
                 raise IndexError(index)
@@ -479,6 +492,7 @@ class Pointclouds:
         self._points_list = None
         self._points_packed = None
 
+    @tracing.spanned("update_padded")
     def update_padded(
         self, new_points_padded: torch.Tensor, new_features_padded=None
     ) -> "Pointclouds":
@@ -525,6 +539,7 @@ class Pointclouds:
             raise ValueError("Input box dimension is incompatible with pointcloud size.")
         if box.ndim == 2:
             box = box[None]
+        tracing.sync("pointclouds.inside_box")
         if bool((box[..., 0, :] > box[..., 1, :]).any()):
             raise ValueError("Input box is invalid: min values larger than max values.")
 
@@ -628,6 +643,7 @@ def subsample(
         max_points = [max_points] * len(pointclouds)
     elif len(max_points) != len(pointclouds):
         raise ValueError("wrong number of max_points supplied")
+    tracing.sync("subsample.lengths")
     lengths = pointclouds.num_points_per_cloud().tolist()
     if all(int(n) <= int(m) for n, m in zip(lengths, max_points)):
         return pointclouds
@@ -662,6 +678,7 @@ def all_close(
 ) -> bool:
     """True when two Pointclouds have allclose packed points and identical
     feature channel sets with allclose values."""
+    tracing.sync("all_close")
     points_all_close = bool(
         torch.allclose(pcd1.points_packed(), pcd2.points_packed(), rtol, atol)
     )
@@ -675,6 +692,7 @@ def all_close(
                 pcd2.features_packed().keys(),
             )
         return False
+    tracing.sync("all_close", len(pcd1.features_packed()))
     feats_close = {
         name: bool(
             torch.allclose(

@@ -11,6 +11,15 @@ from typing import List, Sequence, Tuple, Union
 
 import torch
 
+from .. import tracing
+
+
+def _host_int(v, site: str) -> int:
+    """``int(v)``, counted as a read to the host where v is a tensor."""
+    if isinstance(v, torch.Tensor):
+        tracing.sync(site)
+    return int(v)
+
 
 def list_to_padded(
     x: Union[List[torch.Tensor], Tuple[torch.Tensor, ...]],
@@ -86,7 +95,7 @@ def padded_to_list(
         if isinstance(s, Integral):
             out[i] = out[i][: int(s)]
         else:
-            out[i] = out[i][tuple(slice(0, int(d)) for d in s)]
+            out[i] = out[i][tuple(slice(0, _host_int(d, "padded_to_list")) for d in s)]
     return out
 
 
@@ -101,9 +110,11 @@ def list_to_packed(x: List[torch.Tensor]):
     if not x:
         raise ValueError("list_to_packed: received an empty list.")
     dev = x[0].device
-    sizes = torch.tensor([int(xi.shape[0]) for xi in x], device=dev)
+    counts = [int(xi.shape[0]) for xi in x]
+    sizes = torch.tensor(counts, device=dev)
     starts = torch.cumsum(sizes, 0) - sizes
-    owners = torch.repeat_interleave(torch.arange(len(x), device=dev), sizes)
+    owners = torch.repeat_interleave(torch.arange(len(x), device=dev), sizes,
+                                     output_size=sum(counts))
     return torch.cat(list(x), dim=0), sizes, starts, owners
 
 
@@ -115,8 +126,9 @@ def packed_to_list(x: torch.Tensor, split_size: Union[list, int]):
     out = []
     offset = 0
     for s in split_size:
-        out.append(x[offset : offset + int(s)])
-        offset += int(s)
+        s = _host_int(s, "packed_to_list")
+        out.append(x[offset : offset + s])
+        offset += s
     return out
 
 
@@ -148,6 +160,7 @@ def padded_to_packed(
         return flat
 
     if pad_value is not None:
+        tracing.sync("padded_to_packed.pad_value")  # a mask's size
         return flat[(flat != pad_value).any(-1)]
 
     if len(split_size) != N:

@@ -595,6 +595,83 @@ def phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,
     return cases
 
 
+def screen5(kk, p1, p2, lengths2, plan, s):
+    """The north star's K=100 screen and select: bit-equal to the unseeded
+    rounds, and to the plain twin on 4,096 rows (kernel order, queries
+    sorted as the gate sorts them); the lists' lengths against the capacity
+    and the queries flagged over 20 calls on fresh clouds; the screen's and
+    the select's times beside the two seeded rounds they replaced, in one
+    call (CUDA events, median of 10)."""
+    from pytorch3d_pointops_tpu_torch.kernels import spatial_sort as ss
+
+    dev = p1.device
+    K, P2 = 100, p2.shape[1]
+    base = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sample_bound=False)
+    stats = []
+    with no_host_sync():
+        out = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, _stats=stats)
+    require(torch.equal(out[0], base[0]) and torch.equal(out[1], base[1]),
+            "screen and select K=100: differs from the unseeded rounds")
+    rows = ss.morton_order(p1)
+    rows32 = rows.int()
+    seed = kk.seed_of(kk.kth_bounds(p1, p2, lengths2, [K], 2, s, rows)[0])
+    cap = kk.screen_cap(K, P2, s)
+    shape = (kk._rounds(K, P2), 1, p1.shape[1], kk.ROUND_K)
+    buf = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int64,
+                                                      device=dev))
+    screen = kk._screener(p1, p2, lengths2, 2, rows32)
+    flags = screen(K, seed, cap, buf)
+    sel = kk._join(list(buf[0]), list(buf[1]), K)
+    sub = torch.arange(0, p1.shape[1], p1.shape[1] // 4096, device=dev)[:4096]
+    ref = kk.knn_topk_plain(kk._gather_rows(p1, rows[:, sub]), p2, lengths2, K, 2)
+    require(not flags.any() and torch.equal(sel[0][:, sub], ref[0])
+            and torch.equal(sel[1][:, sub], ref[1]),
+            "screen and select K=100: flagged queries, or rows differ from the plain twin")
+    lengths, flagged = [], 0
+    g = torch.Generator(device=dev).manual_seed(5)
+    for _ in range(20):
+        q = torch.randn(p1.shape, device=dev, generator=g)
+        r = torch.randn(p2.shape, device=dev, generator=g)
+        st = []
+        with no_host_sync():
+            kk.knn_topk_cuda(q, r, lengths2, K, 2, _stats=st)
+        lengths.append(st[0]["counts"].flatten())
+        flagged += int(st[0]["flags"].sum())
+    c = torch.cat(lengths).float()
+    rounds_seeds = [kk.seed_of(t) for t in kk.kth_bounds(p1, p2, lengths2,
+                                                         kk._quantiles(K, P2), 2, s, rows)]
+    launch = kk._launcher(p1, p2, lengths2, 2, plan, rows32)
+    splan = kk.screen_plans(p1, p2, 2)[0]
+    ms = {
+        "screen and select": cuda_ms(lambda: screen(K, seed, cap, buf), reps=10),
+        "two seeded rounds (the parent's)": cuda_ms(
+            lambda: kk._chain(launch, K, P2, rounds_seeds), reps=10),
+        "bounds (one quantile)": cuda_ms(
+            lambda: kk.kth_bounds(p1, p2, lengths2, [K], 2, s, rows), reps=10),
+        "repair, nothing flagged": cuda_ms(
+            lambda: kk._chain(launch, K, P2, None, flags,
+                              (list(buf[0]), list(buf[1]))), reps=10),
+    }
+    lists = torch.empty((1, p1.shape[1], cap), dtype=torch.int64, device=dev)
+    counts = torch.empty((1, p1.shape[1]), dtype=torch.int32, device=dev)
+    lib, stream = kk._lib(), kk._build.stream_ptr(dev)
+    args = (p1.data_ptr(), p2.data_ptr(), lengths2.data_ptr(), rows32.data_ptr(), None,
+            seed.data_ptr(), 1, p1.shape[1], P2, 3, 0, p1.shape[1], cap, 2, *splan,
+            lists.data_ptr(), counts.data_ptr(), stream)
+    ms["screen kernel"] = cuda_ms(lambda: lib.knn_screen(*args), reps=10)
+    ms["select kernel"] = cuda_ms(lambda: lib.knn_select(
+        lists.data_ptr(), counts.data_ptr(), lengths2.data_ptr(), seed.data_ptr(), 1,
+        p1.shape[1], P2, 0, p1.shape[1], cap, K, buf[0].data_ptr(), buf[1].data_ptr(),
+        flags.data_ptr(), stream), reps=10)
+    print(f"  screen and select K=100 ({kk.plan_name(splan)}): bit-equal to the unseeded "
+          f"rounds, 4,096 rows bit-equal to the plain twin; lists over 20 calls on fresh "
+          f"clouds: mean {c.mean().item():.1f}, p99 {c.quantile(0.99).item():.0f}, max "
+          f"{c.max().item():.0f} entries of {cap}, {flagged} of 2,000,000 queries flagged")
+    print(f"  north-star K=100 ms (one call, queries sorted): "
+          f"{json.dumps({k: round(v, 4) for k, v in ms.items()})}; {gpu_line()}")
+    require(flagged == 0, f"screen and select K=100: {flagged} queries flagged in 20 calls")
+
+
 @contextlib.contextmanager
 def no_host_sync():
     """Raise on any host sync a PyTorch op makes inside the block."""
@@ -608,12 +685,16 @@ def no_host_sync():
 
 def phase5(cases, plain_path, note_err):
     """Kth-bound seeding of the KNN kernel: the north-star K=100
-    ``knn_points`` step (seeded by default) as a main path with its own
-    launch counts, against the plain path on the card; seeded calls
-    bit-equal to unseeded ones; the repair forced by too-tight bounds; a
-    raw ``ub=`` round bit-equal to the plain twin; the counters' insertions
-    with and without a seed; seeded and unseeded times. Every seeded call
-    runs under ``no_host_sync``."""
+    ``knn_points`` step (seeded by default: screen and select) as a main
+    path with its own launch counts, against the plain path on the card;
+    seeded calls bit-equal to unseeded ones; the screen and select at the
+    north star against the unseeded rounds and the plain twin on a sample
+    of rows, its lists' lengths against the capacity and the queries
+    flagged over 20 calls, its kernels' times beside the two seeded rounds
+    it replaced; the repair forced by too-tight bounds; a raw ``ub=`` round
+    bit-equal to the plain twin; the counters' insertions with and without
+    a seed; seeded and unseeded times. Every seeded call runs under
+    ``no_host_sync``."""
     import pytorch3d_pointops_tpu_torch as ppt
     from pytorch3d_pointops_tpu_torch.kernels import knn as kk
     from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
@@ -622,12 +703,13 @@ def phase5(cases, plain_path, note_err):
     dev = ns_p1.device
     s_ns = kk._default_sample_s(100000)
 
-    # The north-star step at K=100, a main path: the sample pass, two seeded
-    # 64-key rounds with the queries sorted, the gated repair launches and
-    # the backward's scatter, every launch counter set to 0 just before.
+    # The north-star step at K=100, a main path: the sample pass, the screen
+    # and the select with the queries sorted, the two repair launches (each
+    # block returns at once unless a query of it is flagged) and the
+    # backward's scatter, every launch counter set to 0 just before.
     q = ns_p1.detach().requires_grad_(True)
     r = ns_p2.detach().requires_grad_(True)
-    c5 = ("knn_topk_cuda", "scatter_add_rows")
+    c5 = ("knn_topk_cuda", "knn_screen_cuda", "knn_select_cuda", "scatter_add_rows")
     reset_launches()
     # -- the K=100 main path: nothing but what a user would call --
     torch.cuda.synchronize()
@@ -640,9 +722,10 @@ def phase5(cases, plain_path, note_err):
     launches5 = launch_counts(c5)
     # -- end of the K=100 main path --
     print(f"phase 5: north-star K=100 launches {json.dumps(launches5)} (sample pass, "
-          f"2 seeded rounds, 2 gated repair launches; scatter); fwd+bwd {step_ms:.1f} ms "
+          f"2 gated repair launches; screen, select; scatter); fwd+bwd {step_ms:.1f} ms "
           "(first call; the forward without a host sync)")
-    require(launches5 == {"knn_topk_cuda": 5, "scatter_add_rows": 1},
+    require(launches5 == {"knn_topk_cuda": 3, "knn_screen_cuda": 1, "knn_select_cuda": 1,
+                          "scatter_add_rows": 1},
             f"north-star K=100: launches {launches5}")
     require(bool(torch.isfinite(out.dists).all()) and bool(torch.isfinite(q.grad).all())
             and q.grad.abs().max() > 0 and r.grad.abs().max() > 0,
@@ -662,15 +745,11 @@ def phase5(cases, plain_path, note_err):
     require(derr <= TOL and torch.allclose(q.grad, q2.grad, rtol=TOL, atol=TOL)
             and torch.allclose(r.grad, r2.grad, rtol=TOL, atol=TOL),
             f"north-star K=100: dists err {derr}, grads err {gerr} against the plain path")
-    tau = kk.kth_bounds(ns_p1, ns_p2, ns_len, kk._quantiles(100, 100000), 2, s_ns)
     plan = kk.card_plans(ns_p1, ns_p2, 100, 2)[0]
-    raw = kk._launch_rounds(ns_p1, ns_p2, ns_len, 100, 2, plan,
-                            seeds=[kk.seed_of(t) for t in tau])
     print(f"  against the plain path on the card ({plain_s:.1f} s): idx equal for all "
           f"100,000 queries, dists max abs err {derr:.3g}, grads {gerr[0]:.3g} / "
-          f"{gerr[1]:.3g}; the sampled bounds' repair word "
-          f"{int(kk.repair_gate(raw[1].split(kk.ROUND_K, dim=2), ns_len, 100))} (0: no "
-          "rerun was needed)")
+          f"{gerr[1]:.3g}")
+    screen5(kk, ns_p1, ns_p2, ns_len, plan, s_ns)
 
     # Seeded bit-equal to unseeded: each case with each sort (candidates
     # where the kernel has carried instances), both norms at the north star
@@ -704,25 +783,32 @@ def phase5(cases, plain_path, note_err):
           + "; ".join(f"{c[0]} (K, norm) {list(c[4])}" for c in sweep)
           + f" ({time.perf_counter() - t0:.1f} s)")
 
-    # The repair forced: every bound -1 leaves SENT in every slot; the gate
-    # word is 1, both rounds run again, and the result is the unseeded one.
-    seeds = [kk.seed_of(torch.full((1, 100000), -1.0, device=dev))] * 2
-    bad = kk._launch_rounds(ns_p1, ns_p2, ns_len, 100, 2, plan, seeds=seeds)
-    gate = int(kk.repair_gate(bad[1].split(kk.ROUND_K, dim=2), ns_len, 100))
+    # The repair forced: every bound -1. Seeded rounds (K=64, opted in)
+    # leave SENT in every slot: the gate word is 1. At K=100 every screened
+    # list is short of K: every query is flagged, both rounds run again, and
+    # the result is the unseeded one.
+    seeds = [kk.seed_of(torch.full((1, 100000), -1.0, device=dev))]
+    bad = kk._launch_rounds(ns_p1, ns_p2, ns_len, 64, 2, plan, seeds=seeds)
+    gate = int(kk.repair_gate([bad[1]], ns_len, 64))
     real = kk.kth_bounds
     kk.kth_bounds = lambda p1, p2, l2, kqs, norm, s, rows=None: [
         torch.full(p1.shape[:2], -1.0, device=p1.device) for _ in kqs]
+    forced_stats = []
     try:
         reset_launches()
         with no_host_sync():
-            forced = kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, 100, 2)
-        forced_launches = launch_counts(["knn_topk_cuda"])["knn_topk_cuda"]
+            forced = kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, 100, 2, _stats=forced_stats)
+        forced_launches = launch_counts(c5[:3])
     finally:
         kk.kth_bounds = real
     base = kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, 100, 2, sample_bound=False)
-    require(gate == 1 and forced_launches == 4 and torch.equal(forced[0], base[0])
-            and torch.equal(forced[1], base[1]),
-            f"forced repair: gate {gate}, {forced_launches} launches, or not exact")
+    flagged = int(forced_stats[0]["flags"].sum())
+    require(gate == 1 and flagged == 100000
+            and forced_launches == {"knn_topk_cuda": 2, "knn_screen_cuda": 1,
+                                    "knn_select_cuda": 1}
+            and torch.equal(forced[0], base[0]) and torch.equal(forced[1], base[1]),
+            f"forced repair: gate {gate}, {flagged} flagged, {forced_launches} "
+            "launches, or not exact")
     # A raw ub= round (no repair) against the plain twin, SENT slots
     # included: a bound at each query's 8th distance, K=16.
     sub = ns_p1[:, :4096].contiguous()
@@ -734,7 +820,8 @@ def phase5(cases, plain_path, note_err):
         rp = kk.knn_topk_plain(sub, ns_p2, ns_len, 16, 2, ub=ub)
         require(torch.equal(rk[0], rp[0]) and torch.equal(rk[1], rp[1]),
                 f"raw ub= round (queries sorted {sq}): differs from the plain twin")
-    print(f"  forced repair (bounds -1): repair word {gate}, {forced_launches} launches, "
+    print(f"  forced repair (bounds -1): K=64 repair word {gate}; K=100 {flagged:,} "
+          f"queries flagged, launches {json.dumps(forced_launches)}, "
           f"result bit-equal to unseeded; raw ub= K=16 round bit-equal to the plain "
           f"twin on 4,096 queries, {int((rk[1] == kk.SENT).sum())} SENT slots")
 
@@ -1693,7 +1780,8 @@ def main() -> int:
     knn_log = os.path.join(_build.BUILD_DIR, "knn.ptxas.log")
     if os.path.exists(knn_log):
         with open(knn_log) as f:
-            instances = kernel_instances(f.read(), "knn_topk_kernel")
+            knn_text = f.read()
+        instances = kernel_instances(knn_text, "knn_topk_kernel")
         # knn_topk_kernel<KB, DIM, NORM, Q, CHAINED, CARRIED, COUNT>.
         by_dim = {}
         for key, (regs, spill) in sorted(instances.items()):
@@ -1711,6 +1799,14 @@ def main() -> int:
         require(len(instances) == 93, f"knn: {len(instances)} instances, not 93")
         require(any(k[5] for k in instances) and any(k[6] for k in instances),
                 "knn: no candidate-sorted or no counting instance was built")
+        # knn_screen_kernel<DIM, NORM, Q>: Q 1 and 2 at DIM 3 and 8, Q 1 at 0.
+        screen_inst = kernel_instances(knn_text, "knn_screen_kernel")
+        print("  knn_screen_kernel instances <DIM,NORM,Q> (registers, spill bytes): "
+              + " ".join(f"<{','.join(map(str, k))}>:{regs}r{f'+{spill}s' if spill else ''}"
+                         for k, (regs, spill) in sorted(screen_inst.items())))
+        spilled = [k for k, (_, s) in screen_inst.items() if k[0] == 3 and s]
+        require(len(screen_inst) == 10 and not spilled,
+                f"knn_screen_kernel instances {sorted(screen_inst)}; D=3 spills: {spilled}")
     fps_log = os.path.join(_build.BUILD_DIR, "fps.ptxas.log")
     if os.path.exists(fps_log):
         with open(fps_log) as f:

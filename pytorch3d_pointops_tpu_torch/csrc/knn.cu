@@ -39,7 +39,9 @@
 // in lexicographic (value, index) order: on ties the lowest index wins. K >
 // 64 runs ceil(K/64) rounds of the 64-bucket kernel; round r admits only
 // candidates lexicographically above round r-1's last entry (lb_d, lb_i), so
-// the rounds concatenate to the global order.
+// the rounds concatenate to the global order. The chained rounds run only
+// unseeded and as the repair of a seeded call: a seeded call of more than one
+// round takes the screen and the select below instead.
 //
 // Query sorting (ports knn_pallas.py's sort_queries): the wrapper may pass
 // rows, the queries in Morton order; the kernel's query q of cloud n is then
@@ -71,10 +73,34 @@
 // after the seed entries without CARRIED (v > d) and before them with it
 // (i == kSent > j): a superset admission into an exact insert. A kSent left
 // in a slot the cloud could have filled means the bound was too tight; the
-// wrapper detects that on the device and reruns every round unseeded,
-// gated on that word (gate: every block returns at once while it is 0). A
-// seed of +inf is no seed: that query starts at (inf, 0). ub and gate are
-// read once a block, so the instances are those of the unseeded kernel.
+// wrapper detects that on the device and reruns the round unseeded, gated
+// on per-query flags (gate: a block none of whose queries is flagged returns
+// at once; the single-round repair flags every query or none). A seed of
+// +inf is no seed: that query starts at (inf, 0). ub and gate are read once
+// a block, so the instances are those of the unseeded kernel. Seeding runs
+// single rounds only where a caller opts in (ub=, sample_bound=True).
+//
+// Screen and select (seeded calls of more than one round, e.g. K=100): the
+// 64-key state takes ~240 registers, holds an SM to 8 warps and one query a
+// thread, and the chained rounds compute every distance once a round. With
+// one seed a query (the bound of the call's last quantile), no sorted state
+// is needed: knn_screen_kernel scans every candidate once (the same staging
+// and distance helpers; two queries a thread at under 128 registers) and
+// appends each candidate below its query's seed to a list in device memory
+// as one 64-bit key, (float bits of d) << 32 | j, whose unsigned order is
+// (value, index) order; knn_select_kernel, a warp a query, reads the K
+// smallest keys off the list (a radix select, then a bitonic sort) into the
+// rounds' outputs. A query whose list may lack one of its K nearest (fewer
+// entries than min(K, lengths2), more than the list holds, no finite seed) is
+// flagged, and the chained rounds rerun for the flagged queries' blocks into
+// the same outputs. Every path gives the unseeded result bit for bit. The
+// two replace no TPU kernel (the TPU side chains seeded rounds,
+// _knn_forward_pallas_bigk): on the H100 the rounds' state, not their
+// distances, set the pace. The screen is bound by instruction issue like the
+// rounds; its vote takes a fused distance (vote_distance: 6 operations a pair
+// at D=3, not 8) against a slightly widened seed, and the exact distance
+// decides each candidate that passes. The select is bound by its reads of
+// the lists (about 490 keys a query at the north star).
 //
 // Counting (COUNT; ports knn_pallas.py's instrument): per block, the groups
 // its warps scanned, the votes that fired, the drains that had work, the
@@ -403,12 +429,20 @@ __global__ void __launch_bounds__(kMaxThreads) knn_topk_kernel(
     const int* __restrict__ gate, int P1, int P2, int D, int K, int tile,
     float* __restrict__ out_d, int64_t* __restrict__ out_i) {
   using State = Scan<KB, DIM, NORM, Q, CHAINED, CARRIED, COUNT>;
-  if (gate != nullptr && *gate == 0) return;  // a repair rerun not needed
   extern __shared__ float4 smem_f4[];
   float* const stage = reinterpret_cast<float*>(smem_f4);
   const int S = stride_of(DIM, D);
   const int n = blockIdx.y;
   const int first = blockIdx.x * Q * blockDim.x + threadIdx.x;
+  if (gate != nullptr) {  // a repair rerun: only blocks with a flagged query
+    int flagged = 0;
+#pragma unroll
+    for (int qq = 0; qq < Q; ++qq) {
+      const int q = first + qq * blockDim.x;
+      if (q < P1) flagged |= gate[(int64_t)n * P1 + q];
+    }
+    if (!__syncthreads_or(flagged)) return;
+  }
 
   // Rows past P1 compute on the cloud's first query but never admit: their
   // kth is -inf. A finite seed starts the state at (seed, kSent).
@@ -638,6 +672,440 @@ cudaError_t dispatch(const Args& a, int norm, int q, int threads, int tile,
   return cudaErrorInvalidValue;
 }
 
+// ---- Screen and select: seeded calls of more than one round ----
+
+// The rounds' width: the select writes slot s of a query into round s / 64.
+constexpr int kRoundK = 64;
+
+// The screen's vote distance: the terms of `distance`, each square after the
+// first accumulated by one fused multiply-add (at D=3, 6 operations a pair
+// instead of 8). All terms are >= 0, so it and `distance` each lie within a
+// factor (1 + 2^-24)^D of the exact sum, and below the normal range within
+// D * 2^-149 of it; a vote against the seed widened by D * 2^-20 of itself
+// therefore passes every candidate that `distance` puts below the seed. L1
+// needs no product: it is `distance` itself.
+template <int DIM, int NORM>
+__device__ __forceinline__ float vote_distance(const float* q, const Cand<DIM>& c,
+                                               int D) {
+  if constexpr (NORM == 1) {
+    return distance<DIM, NORM>(q, c, D);
+  } else if constexpr (DIM == 0) {
+    float diff = __fsub_rn(q[0], c.p[0]);
+    float d = __fmul_rn(diff, diff);
+    for (int k = 1; k < D; ++k) {
+      diff = __fsub_rn(q[k], c.p[k]);
+      d = __fmaf_rn(diff, diff, d);
+    }
+    return d;
+  } else {
+    float diff = __fsub_rn(q[0], c.v[0]);
+    float d = __fmul_rn(diff, diff);
+#pragma unroll
+    for (int k = 1; k < DIM; ++k) {
+      if (DIM == 3 || k < D) {
+        diff = __fsub_rn(q[k], c.v[k]);
+        d = __fmaf_rn(diff, diff, d);
+      }
+    }
+    return d;
+  }
+}
+
+// One thread's queries of the screen and the scan of one staged tile: no
+// top-K state, only each query's seed, list and count. A group of U = 16/Q
+// candidates computes its Q*U vote distances and one minimum a query against
+// the widened seed; one __any_sync decides whether the warp looks further.
+// Then each query with a hit marks those candidates in a bit mask and, one
+// loop turn a candidate, computes `distance` again from the staged tile and
+// appends the candidate if that is below its seed (strict): the keys hold
+// the exact distances, and a lane pays for its own candidates, not for U
+// predicated ones a query. A list keeps at most cap keys; its count is kept
+// whole.
+template <int DIM, int NORM, int Q>
+struct Screen {
+  static constexpr int U = kGroupSlots / Q;  // candidates a group
+  static constexpr int QD = DIM > 0 ? DIM : 1;
+
+  float qv[Q][QD];
+  const float* qp[Q];
+  float seed[Q];  // -inf: nothing to list (an inactive row, or no finite seed)
+  float wide[Q];  // the vote's bound: seed widened by D * 2^-20 of itself
+  int cnt[Q];
+  unsigned long long* list[Q];
+  const int* ids;  // the cloud's candidates' original indices, or null
+  int D, S, cap;
+
+  __device__ __forceinline__ float dist(int qq, const Cand<DIM>& c) const {
+    return distance<DIM, NORM>(DIM > 0 ? qv[qq] : qp[qq], c, D);
+  }
+
+  __device__ __forceinline__ float vote_dist(int qq, const Cand<DIM>& c) const {
+    return vote_distance<DIM, NORM>(DIM > 0 ? qv[qq] : qp[qq], c, D);
+  }
+
+  template <bool TAIL>
+  __device__ __forceinline__ void load_group(Cand<DIM> (&c)[U], const float* cur,
+                                             int g, int cnt_tile) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      c[u] = load_cand<DIM>(cur + (TAIL ? min(g + u, cnt_tile - 1) : g + u) * S);
+    }
+  }
+
+  // The key of candidate `pos` at distance d: distances are never negative
+  // or -0, so unsigned key order is (value, index) order.
+  __device__ __forceinline__ void append(int qq, float d, int pos) {
+    const unsigned j = ids != nullptr ? (unsigned)ids[pos] : (unsigned)pos;
+    if (cnt[qq] < cap) {
+      list[qq][cnt[qq]] = (unsigned long long)__float_as_uint(d) << 32 | j;
+    }
+    ++cnt[qq];
+  }
+
+  template <bool TAIL>
+  __device__ __forceinline__ void group(const Cand<DIM> (&c)[U], const float* cur,
+                                        int t0, int g, int cnt_tile) {
+    float dg[Q][U];
+    float lo[Q];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int qq = 0; qq < Q; ++qq) {
+        dg[qq][u] = vote_dist(qq, c[u]);
+        lo[qq] = u == 0 ? dg[qq][0] : fminf(lo[qq], dg[qq][u]);
+      }
+    }
+    bool hit[Q];
+    bool any = false;
+#pragma unroll
+    for (int qq = 0; qq < Q; ++qq) {
+      hit[qq] = lo[qq] < wide[qq];
+      any |= hit[qq];
+    }
+    if (!__any_sync(0xffffffffu, any)) return;
+#pragma unroll
+    for (int qq = 0; qq < Q; ++qq) {
+      if (!hit[qq]) continue;
+      unsigned near = 0;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if ((!TAIL || g + u < cnt_tile) && dg[qq][u] < wide[qq]) near |= 1u << u;
+      }
+      while (near != 0) {
+        const int u = __ffs(near) - 1;
+        near &= near - 1;
+        const float d = dist(qq, load_cand<DIM>(cur + (g + u) * S));
+        if (d < seed[qq]) append(qq, d, t0 + g + u);
+      }
+    }
+  }
+
+  // D=3, Q >= 2: the next group is loaded while this one is computed, into
+  // two buffers taken in turn (no register copies); a load reads up to U
+  // candidates past the tile, into the padding that the launch adds behind
+  // the second tile, and never uses them.
+  __device__ __forceinline__ void scan_tile(const float* cur, int t0, int cnt_tile) {
+    int g = 0;
+    if constexpr (DIM == 3 && Q >= 2) {
+      Cand<DIM> a[U], b[U];
+      if (U <= cnt_tile) load_group<false>(a, cur, 0, cnt_tile);
+      for (; g + 2 * U <= cnt_tile; g += 2 * U) {
+        load_group<false>(b, cur, g + U, cnt_tile);
+        group<false>(a, cur, t0, g, cnt_tile);
+        load_group<false>(a, cur, g + 2 * U, cnt_tile);
+        group<false>(b, cur, t0, g + U, cnt_tile);
+      }
+      if (g + U <= cnt_tile) {
+        group<false>(a, cur, t0, g, cnt_tile);
+        g += U;
+      }
+    } else {
+      for (; g + U <= cnt_tile; g += U) {
+        Cand<DIM> c[U];
+        load_group<false>(c, cur, g, cnt_tile);
+        group<false>(c, cur, t0, g, cnt_tile);
+      }
+    }
+    if (g < cnt_tile) {
+      Cand<DIM> c[U];
+      load_group<true>(c, cur, g, cnt_tile);
+      group<true>(c, cur, t0, g, cnt_tile);
+    }
+  }
+};
+
+// The screen over queries [q0, q0 + nq) of every cloud (kernel order): thread
+// t of block b owns chunk queries b * Q * blockDim.x + qq * blockDim.x + t.
+// Each candidate at a distance below its query's seed (strict) is appended to
+// the query's list, lists + (n * nq + query) * cap, as one key; counts (N, nq)
+// gets each query's whole count. A block none of whose queries has a finite
+// seed scans nothing (the select flags them). Shared memory: two tiles of
+// (tile, S) floats and U candidates of padding.
+template <int DIM, int NORM, int Q>
+__global__ void __launch_bounds__(kMaxThreads, 2) knn_screen_kernel(
+    const float* __restrict__ p1, const float* __restrict__ p2,
+    const int64_t* __restrict__ lengths2, const int* __restrict__ rows,
+    const int* __restrict__ cand_ids, const float* __restrict__ seeds, int P1,
+    int P2, int D, int q0, int nq, int cap, int tile,
+    unsigned long long* __restrict__ lists, int* __restrict__ counts) {
+  extern __shared__ float4 smem_f4[];
+  float* const stage = reinterpret_cast<float*>(smem_f4);
+  const int S = stride_of(DIM, D);
+  const int n = blockIdx.y;
+  const int first = blockIdx.x * Q * blockDim.x + threadIdx.x;
+
+  Screen<DIM, NORM, Q> st;
+  st.D = D;
+  st.S = S;
+  st.cap = cap;
+  st.ids = cand_ids != nullptr ? cand_ids + (int64_t)n * P2 : nullptr;
+  int seeded = 0;
+#pragma unroll
+  for (int qq = 0; qq < Q; ++qq) {
+    const int lq = first + qq * blockDim.x;
+    const bool active = lq < nq;
+    const int64_t row = (int64_t)n * P1 + q0 + (active ? lq : 0);
+    const int64_t src = rows != nullptr ? (int64_t)n * P1 + rows[row] : row;
+    st.qp[qq] = p1 + src * D;
+#pragma unroll
+    for (int d = 0; d < Screen<DIM, NORM, Q>::QD; ++d) {
+      st.qv[qq][d] = (DIM == 3 || (DIM > 0 && d < D)) ? st.qp[qq][d] : 0.f;
+    }
+    const float seed = active ? seeds[row] : -INFINITY;
+    st.seed[qq] = seed < INFINITY ? seed : -INFINITY;  // +inf or NaN: no seed
+    st.wide[qq] = __fmul_ru(st.seed[qq], 1.0f + D * 0x1p-20f);
+    seeded |= st.seed[qq] > -INFINITY;
+    st.cnt[qq] = 0;
+    st.list[qq] = lists + ((int64_t)n * nq + (active ? lq : 0)) * cap;
+  }
+
+  const int64_t len64 = lengths2[n];
+  const int len2 = (int)(len64 < 0 ? 0 : (len64 > P2 ? P2 : len64));
+  const float* p2n = p2 + (int64_t)n * P2 * D;
+  const int tiles = __syncthreads_or(seeded) ? (len2 + tile - 1) / tile : 0;
+  if (tiles > 0) {
+    stage_tile<DIM, false>(stage, p2n, nullptr, min(tile, len2), D, S);
+  }
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t is staged; no thread still reads t-1's
+    const int t0 = t * tile;
+    if (t + 1 < tiles) {
+      stage_tile<DIM, false>(stage + ((t + 1) & 1) * tile * S,
+                             p2n + (int64_t)(t0 + tile) * D, nullptr,
+                             min(tile, len2 - t0 - tile), D, S);
+    }
+    st.scan_tile(stage + (t & 1) * tile * S, t0, min(tile, len2 - t0));
+  }
+
+#pragma unroll
+  for (int qq = 0; qq < Q; ++qq) {
+    const int lq = first + qq * blockDim.x;
+    if (lq < nq) counts[(int64_t)n * nq + lq] = st.cnt[qq];
+  }
+}
+
+// The select: one warp a query of the chunk. The query is flagged for the
+// repair (flags (N, P1), kernel order) when its seed is not finite, its count
+// is below min(K, lengths2) (the seed was too tight) or above cap (the list
+// lost entries); else its kept = min(K, count) smallest keys are exactly its
+// top-K. They are found by a radix select on the list in device memory (8
+// bits a pass from the top, until every key of the chosen bin is kept; the
+// passes after the first read it from the caches), gathered in list order
+// into shared memory, sorted there by a bitonic network of the next power of
+// two at or above kept keys, and written as (value, index) to slot s of
+// round s / 64 of the outputs (R, N, P1, 64); slots kept..K-1 take (inf, 0).
+// Shared memory a warp: buf >= kept keys and a 256-bin histogram. (Copying
+// the list into shared memory first was slower on the H100: 0.91 against
+// 0.57 ms at the north star, the copy's 12 KB a warp cutting the resident
+// warps 4x. Of the 0.59 ms, reading the lists and writing the outputs took
+// 0.19, the radix passes 0.12 and the sort about 0.2; starting the passes
+// below the keys' common leading bits saved nothing.)
+__global__ void __launch_bounds__(kMaxThreads) knn_select_kernel(
+    const unsigned long long* __restrict__ lists, const int* __restrict__ counts,
+    const int64_t* __restrict__ lengths2, const float* __restrict__ seeds, int P1,
+    int P2, int q0, int nq, int cap, int K, int buf, float* __restrict__ out_d,
+    int64_t* __restrict__ out_i, int* __restrict__ flags) {
+  extern __shared__ unsigned long long smem_u64[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lq = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (lq >= nq) return;
+  const int n = blockIdx.y;
+  unsigned long long* const keys = smem_u64 + (size_t)warp * (buf + 128);
+  unsigned* const hist = reinterpret_cast<unsigned*>(keys + buf);
+  const int64_t row = (int64_t)n * P1 + q0 + lq;
+  const int64_t lrow = (int64_t)n * nq + lq;
+  const int count = counts[lrow];
+  const int64_t len64 = lengths2[n];
+  const int len2 = (int)(len64 < 0 ? 0 : (len64 > P2 ? P2 : len64));
+  const bool flagged =
+      !(seeds[row] < INFINITY) || count < min(K, len2) || count > cap;
+  if (lane == 0) flags[row] = flagged ? 1 : 0;
+  if (flagged) return;
+  const unsigned long long* const list = lists + lrow * cap;
+  const int kept = min(K, count);
+
+  // Keys kept: (key >> shift) <= limit; every key while count <= K.
+  int shift = 64;
+  unsigned long long prefix = 0;
+  if (count > kept) {
+    unsigned need = kept;  // the rank sought among keys matching the prefix
+    while (shift > 0) {
+      shift -= 8;
+      const unsigned long long above = shift == 56 ? 0ull : ~0ull << (shift + 8);
+      for (int b = lane; b < 256; b += 32) hist[b] = 0;
+      __syncwarp();
+      for (int e = lane; e < count; e += 32) {
+        const unsigned long long k = list[e];
+        if ((k & above) == prefix) atomicAdd(&hist[(unsigned)(k >> shift) & 255u], 1u);
+      }
+      __syncwarp();
+      unsigned h[8];
+      unsigned sum = 0;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        h[t] = hist[lane * 8 + t];
+        sum += h[t];
+      }
+      unsigned incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const int owner = __ffs(__ballot_sync(0xffffffffu, incl >= need)) - 1;
+      unsigned before = incl - sum, in_bin = 0;
+      int bin = 0;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        if (in_bin == 0) {
+          if (before + h[t] >= need) {
+            bin = lane * 8 + t;
+            in_bin = h[t];
+          } else {
+            before += h[t];
+          }
+        }
+      }
+      bin = __shfl_sync(0xffffffffu, bin, owner);
+      before = __shfl_sync(0xffffffffu, before, owner);
+      in_bin = __shfl_sync(0xffffffffu, in_bin, owner);
+      need -= before;
+      prefix |= (unsigned long long)bin << shift;
+      __syncwarp();  // every lane has read the histogram before the next clear
+      if (in_bin == need) break;
+    }
+  }
+  const unsigned long long limit = shift < 64 ? prefix >> shift : 0;
+  int at = 0;
+  for (int base = 0; base < count && at < kept; base += 32) {
+    const int e = base + lane;
+    const unsigned long long k = e < count ? list[e] : 0;
+    const bool keep = e < count && (shift == 64 || (k >> shift) <= limit);
+    const unsigned m = __ballot_sync(0xffffffffu, keep);
+    if (keep) keys[at + __popc(m & ((1u << lane) - 1u))] = k;
+    at += __popc(m);
+  }
+  int size = 1;
+  while (size < kept) size <<= 1;
+  for (int e = kept + lane; e < size; e += 32) keys[e] = ~0ull;
+  __syncwarp();
+  for (int block = 2; block <= size; block <<= 1) {
+    for (int stride = block >> 1; stride > 0; stride >>= 1) {
+      for (int t = lane; t < size / 2; t += 32) {
+        const int lo = (t / stride) * 2 * stride + (t & (stride - 1));
+        const int hi = lo + stride;
+        const unsigned long long a = keys[lo], b = keys[hi];
+        if ((a > b) == ((lo & block) == 0)) {
+          keys[lo] = b;
+          keys[hi] = a;
+        }
+      }
+      __syncwarp();
+    }
+  }
+  const int64_t round = (int64_t)gridDim.y * P1 * kRoundK;
+  for (int s = lane; s < K; s += 32) {
+    const int64_t o = (s / kRoundK) * round + row * kRoundK + s % kRoundK;
+    if (s < kept) {
+      const unsigned long long k = keys[s];
+      out_d[o] = __uint_as_float((unsigned)(k >> 32));
+      out_i[o] = (int64_t)(unsigned)k;
+    } else {
+      out_d[o] = INFINITY;
+      out_i[o] = 0;
+    }
+  }
+}
+
+struct ScreenArgs {
+  const float* p1;
+  const float* p2;
+  const int64_t* lengths2;
+  const int* rows;
+  const int* cand_ids;
+  const float* seeds;
+  int N, P1, P2, D, q0, nq, cap;
+  unsigned long long* lists;
+  int* counts;
+};
+
+template <int DIM, int NORM, int Q>
+cudaError_t run_screen(const ScreenArgs& a, int threads, int tile,
+                       cudaStream_t stream, int* resident) {
+  auto kernel = knn_screen_kernel<DIM, NORM, Q>;
+  const size_t smem = (2 * (size_t)tile + Screen<DIM, NORM, Q>::U) *
+                      stride_of(DIM, a.D) * sizeof(float);
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (resident != nullptr) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, kernel,
+                                                         threads, smem);
+  }
+  const dim3 grid((a.nq + Q * threads - 1) / (Q * threads), a.N);
+  kernel<<<grid, threads, smem, stream>>>(a.p1, a.p2, a.lengths2, a.rows,
+                                          a.cand_ids, a.seeds, a.P1, a.P2, a.D,
+                                          a.q0, a.nq, a.cap, tile, a.lists,
+                                          a.counts);
+  return cudaGetLastError();
+}
+
+// Q queries a thread: 1 or 2 where the queries live in registers, 1 on the
+// generic-D path (Q = 4 fits without a top-K state, but measured 30-40 %
+// slower than Q = 2 under every plan at the north star, tune_knn.py).
+template <int DIM, int NORM>
+cudaError_t screen_q(const ScreenArgs& a, int q, int threads, int tile,
+                     cudaStream_t stream, int* resident) {
+  if (q == 1) return run_screen<DIM, NORM, 1>(a, threads, tile, stream, resident);
+  if constexpr (DIM > 0) {
+    if (q == 2) return run_screen<DIM, NORM, 2>(a, threads, tile, stream, resident);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int NORM>
+cudaError_t screen_dim(const ScreenArgs& a, int q, int threads, int tile,
+                       cudaStream_t stream, int* resident) {
+  if (a.D == 3) return screen_q<3, NORM>(a, q, threads, tile, stream, resident);
+  if (a.D <= 8) return screen_q<8, NORM>(a, q, threads, tile, stream, resident);
+  return screen_q<0, NORM>(a, q, threads, tile, stream, resident);
+}
+
+cudaError_t screen_dispatch(const ScreenArgs& a, int norm, int q, int threads,
+                            int tile, cudaStream_t stream, int* resident) {
+  if (a.D < 1 || a.N > 65535 || a.cap < 1 || tile < 1 || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  if (norm == 2) return screen_dim<2>(a, q, threads, tile, stream, resident);
+  if (norm == 1) return screen_dim<1>(a, q, threads, tile, stream, resident);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // p1 (N, P1, D), p2 (N, P2, D) float32; lengths2 (N,) int64; lb_d/lb_i
@@ -648,8 +1116,8 @@ cudaError_t dispatch(const Args& a, int norm, int q, int threads, int tile,
 // int32 original indices and starts (N, blocks) int32 start tiles, or both
 // null (p2 in index order); counts (N, blocks, 5) uint64 zeroed, or null;
 // ub (N, P1) float32 seeds in the kernel's query order, or null (unseeded);
-// gate one int32 on the device, or null: while it is 0 the launch does
-// nothing; out_d/out_i (N, P1, K) with 1 <= K <= 64. q queries a thread, threads a
+// gate (N, P1) int32 repair flags in the kernel's query order, or null: a
+// block none of whose queries is flagged does nothing; out_d/out_i (N, P1, K) with 1 <= K <= 64. q queries a thread, threads a
 // block (a multiple of 32, at most 256), tile candidates a staged tile;
 // blocks = ceil(P1 / (q * threads)). Returns the launch's cudaError_t.
 extern "C" int knn_topk(const float* p1, const float* p2,
@@ -681,4 +1149,57 @@ extern "C" int knn_resident_blocks(int K, int D, int norm, int q, int threads,
                nullptr, nullptr, nullptr, nullptr, 1, 1, 1, D, K, nullptr,
                nullptr, carried != 0, count != 0};
   return dispatch(a, norm, q, threads, tile, nullptr, blocks);
+}
+
+// The screen over queries [q0, q0 + nq) of every cloud, in the kernel's query
+// order (rows, as for knn_topk, or null): seeds (N, P1) float32 in that
+// order; cand_ids (N, P2) int32 original indices (p2 reordered) or null;
+// lists (N, nq, cap) uint64 and counts (N, nq) int32 written. q queries a
+// thread (1 or 2; 1 at D > 8), threads a block (a multiple of 32, at most
+// 256), tile candidates a staged tile. Returns the launch's cudaError_t.
+extern "C" int knn_screen(const float* p1, const float* p2, const int64_t* lengths2,
+                          const int* rows, const int* cand_ids, const float* seeds,
+                          int N, int P1, int P2, int D, int q0, int nq, int cap,
+                          int norm, int q, int threads, int tile,
+                          unsigned long long* lists, int* counts, void* stream) {
+  if (N <= 0 || nq <= 0) return cudaSuccess;
+  const ScreenArgs a{p1, p2, lengths2, rows, cand_ids, seeds, N, P1, P2, D,
+                     q0, nq, cap, lists, counts};
+  return screen_dispatch(a, norm, q, threads, tile,
+                         static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// How many blocks of the screen's (D, norm, q) instance fit on one SM of the
+// current device at this block size and tile (0 if none).
+extern "C" int knn_screen_resident(int D, int norm, int q, int threads, int tile,
+                                   int* blocks) {
+  *blocks = 0;
+  const ScreenArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     1, 1, 1, D, 0, 1, 1, nullptr, nullptr};
+  return screen_dispatch(a, norm, q, threads, tile, nullptr, blocks);
+}
+
+// The select after knn_screen over the same chunk: lists, counts, seeds as
+// there; flags (N, P1) int32 written for the chunk's queries; out_d/out_i
+// (R, N, P1, 64), R * 64 >= K, the rounds' outputs, written for the queries
+// not flagged. One warp a query; the sort holds the next power of two at or
+// above min(K, cap) keys (at most 4,096).
+extern "C" int knn_select(const unsigned long long* lists, const int* counts,
+                          const int64_t* lengths2, const float* seeds, int N, int P1,
+                          int P2, int q0, int nq, int cap, int K, float* out_d,
+                          int64_t* out_i, int* flags, void* stream) {
+  if (N <= 0 || nq <= 0) return cudaSuccess;
+  if (N > 65535 || cap < 1 || K < 1) return cudaErrorInvalidValue;
+  int sort_n = 1;
+  while (sort_n < (K < cap ? K : cap)) sort_n <<= 1;
+  if (sort_n > 4096) return cudaErrorInvalidValue;
+  const size_t per_warp = ((size_t)sort_n + 128) * sizeof(unsigned long long);
+  int warps = (int)(kDefaultSmem / per_warp);
+  warps = warps < 1 ? 1 : (warps > 8 ? 8 : warps);
+  const dim3 grid((nq + warps - 1) / warps, N);
+  knn_select_kernel<<<grid, warps * 32, warps * per_warp,
+                      static_cast<cudaStream_t>(stream)>>>(
+      lists, counts, lengths2, seeds, P1, P2, q0, nq, cap, K, sort_n, out_d, out_i,
+      flags);
+  return cudaGetLastError();
 }

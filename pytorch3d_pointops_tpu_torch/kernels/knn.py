@@ -37,13 +37,23 @@ closing quantile (``kth_bounds``), and each round's top-K state starts at
 that bound with ``SENT`` indices, so a query inserts only the candidates
 below it. A ``SENT`` left in a slot the cloud could fill means a bound was
 too tight: that is detected on the device, and every round reruns
-unseeded, gated on the detection word, so there is no host sync and the
+unseeded, gated on the detection (per-query flags), so there is no host sync and the
 result is the unseeded one bit for bit. Slots past ``lengths2`` then hold
 (inf, 0), as unseeded (JAX's raw output keeps the seed value there). The
 order is: one query sort and one candidate sort, then the sample pass in
 the queries' order, the seeded rounds and the repair. ``None`` means the
 measured gate (``seed_gate``); ``ub=`` seeds one round from a bound the
 caller gives and returns the raw state, ``SENT`` slots included.
+
+Screen and select (a seeded call of more than one round, K > 64; no TPU
+counterpart): the sample pass gives one bound a query, that of the call's
+last quantile; the screen kernel lists every candidate below its query's
+seed as a 64-bit key (``screen_keys``) in a list of ``screen_cap``
+entries, and the select kernel reads the K smallest keys off the list into
+the rounds' outputs (``_screener``; ``_plain_screener`` on the CPU). A
+query whose list may lack one of its K nearest (fewer entries than min(K,
+lengths2), more than the list holds, no finite seed) is flagged, and the
+chained rounds rerun unseeded for the flagged queries (``_screened``).
 """
 
 from __future__ import annotations
@@ -103,6 +113,17 @@ _BOUND_MARGIN_SIGMA = 6.0
 _BOUND_MARGIN_ABS = 8.0
 # The deepest sample rank a bound may take.
 _MAX_RANK = 512
+
+# Screen and select (seeded calls of more than one round): a query's list
+# holds a multiple of _LIST_STEP entries, the fewest at which a query of a
+# full cloud overflows with probability at most _OVERFLOW_P (screen_cap);
+# the lists of one launch take at most _LIST_BYTES (queries in chunks past
+# that); the select sorts at most _SELECT_MAX_K keys a query (csrc/knn.cu
+# knn_select), and calls of larger K keep the seeded chained rounds.
+_LIST_STEP = 256
+_OVERFLOW_P = 1e-12
+_LIST_BYTES = 2 * 1024**3
+_SELECT_MAX_K = 4096
 
 # K buckets of one round in which the auto gate (None) seeds single-round
 # calls: none, as in the JAX package (tune_knn.py on an H100 80GB HBM3 at
@@ -176,21 +197,32 @@ def _plan_cost(N, P1, D, plan: Plan, sm_count: int, resident: int) -> float:
     return warps * per_warp / min(1.0, 0.75 * concurrent)
 
 
-def feasible_plans(N, P1, P2, D, K, resident: Callable[[Plan], int]) -> list[Plan]:
-    """Every plan the kernel takes for one round of min(K, 64) keys at these
-    shapes, with at least one block resident on an SM."""
-    plans = [Plan(q, t, tile) for q in (1, 2) if q <= _max_queries(K, D)
-             for t in _THREADS for tile in _tiles(P2, D)]
+def _screen_queries(D: int) -> tuple[int, ...]:
+    """Queries a thread the screen kernel may own: 1 or 2 where the queries
+    live in registers (D <= 8), else 1."""
+    return (1, 2) if D <= 8 else (1,)
+
+
+def feasible_plans(N, P1, P2, D, K, resident: Callable[[Plan], int],
+                   queries=None) -> list[Plan]:
+    """Every plan the kernel takes for one round of min(K, 64) keys (or,
+    with ``queries``, the screen kernel with those queries a thread) at
+    these shapes, with at least one block resident on an SM."""
+    if queries is None:
+        queries = [q for q in (1, 2) if q <= _max_queries(K, D)]
+    plans = [Plan(q, t, tile) for q in queries for t in _THREADS
+             for tile in _tiles(P2, D)]
     return [p for p in plans if resident(p) >= 1]
 
 
 def _launch_plan(N, P1, P2, D, K, sm_count: int,
-                 resident: Callable[[Plan], int]) -> Plan:
+                 resident: Callable[[Plan], int], queries=None) -> Plan:
     """The plan ``knn_topk_cuda`` launches: the default tile, Q = 1 where a
     larger Q would leave fewer blocks than SMs even at 32 threads, then the
     least ``_plan_cost``; on ties the larger block, then the smaller Q."""
     tile = _tiles(P2, D)[0]
-    plans = [p for p in feasible_plans(N, P1, P2, D, K, resident) if p.tile == tile]
+    plans = [p for p in feasible_plans(N, P1, P2, D, K, resident, queries)
+             if p.tile == tile]
     plans = [p for p in plans
              if p.queries == 1 or _blocks(N, P1, Plan(p.queries, 32, tile)) >= sm_count]
     if not plans:
@@ -363,7 +395,13 @@ def _lib():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.knn_resident_blocks.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    for fn in (lib.knn_topk, lib.knn_resident_blocks):
+    lib.knn_screen.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [
+        ctypes.c_void_p] * 3
+    lib.knn_screen_resident.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.knn_select.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p] * 4
+    for fn in (lib.knn_topk, lib.knn_resident_blocks, lib.knn_screen,
+               lib.knn_screen_resident, lib.knn_select):
         fn.restype = ctypes.c_int
     return lib
 
@@ -407,6 +445,42 @@ def _sm_count(device: int) -> int:
 def _card_plan(device: int, N, P1, P2, D, K, norm, carried=False) -> Plan:
     return _launch_plan(N, P1, P2, D, K, _sm_count(device),
                         lambda plan: _resident(device, K, D, norm, plan, carried))
+
+
+@functools.lru_cache(maxsize=None)
+def _screen_resident(device: int, D: int, norm: int, plan: Plan) -> int:
+    """Blocks of the screen kernel's instance for (D, norm, plan) that fit
+    on one SM of CUDA device ``device``."""
+    blocks = ctypes.c_int()
+    with torch.cuda.device(device):
+        _build.check(
+            _lib().knn_screen_resident(D, norm, plan.queries, plan.threads,
+                                       plan.tile, ctypes.byref(blocks)),
+            "knn_screen_resident",
+        )
+    return blocks.value
+
+
+@functools.lru_cache(maxsize=256)
+def _screen_card_plan(device: int, N, P1, P2, D, norm) -> Plan:
+    return _launch_plan(N, P1, P2, D, ROUND_K, _sm_count(device),
+                        lambda plan: _screen_resident(device, D, norm, plan),
+                        _screen_queries(D))
+
+
+def screen_plans(p1, p2, norm: int, chunk: int | None = None
+                 ) -> tuple[Plan, list[Plan]]:
+    """(the plan the screen kernel launches, every feasible plan) for these
+    CUDA inputs on their card, over chunks of ``chunk`` queries (default:
+    all of them)."""
+    N, P1, D = p1.shape
+    P2 = p2.shape[1]
+    nq = P1 if chunk is None else min(chunk, P1)
+    dev = p1.device.index
+    return (_screen_card_plan(dev, N, nq, P2, D, norm),
+            feasible_plans(N, nq, P2, D, ROUND_K,
+                           lambda plan: _screen_resident(dev, D, norm, plan),
+                           _screen_queries(D)))
 
 
 def card_plans(p1, p2, K: int, norm: int, carried: bool = False
@@ -519,6 +593,37 @@ def bound_ranks(lengths2, kqs, s: int, P2: int):
     m_max = _max_rank(kqs, P2, s)
     usable = (m_r <= m_max) & (lengths2[:, None] >= max(P2 // 2, 1))
     return m_max, m_r, usable
+
+
+def _poisson_below(lam: float, m: int) -> float:
+    """P(X < m) for X ~ Poisson(lam), summed in log space."""
+    if lam <= 0:
+        return 1.0
+    return sum(math.exp(i * math.log(lam) - lam - math.lgamma(i + 1)) for i in range(m))
+
+
+@functools.lru_cache(maxsize=256)
+def screen_cap(K: int, P2: int, s: int) -> int:
+    """The entries of a query's list in the screen: the fewest, a multiple
+    of ``_LIST_STEP``, at which a query of a full cloud overflows with
+    probability at most ``_OVERFLOW_P``. Its bound is the m-th smallest of
+    ``s`` sample distances, m the rank ``bound_ranks`` gives the call's last
+    quantile at lengths2 = P2; its ``cap`` nearest candidates hold about
+    Poisson(cap * s / P2) sample points, and fewer than m of them put the
+    bound past the cap-th candidate. A shorter cloud is safer (lambda / m
+    grows as lengths2 falls). An overflow only sends the query to the
+    repair."""
+    m = _bound_m(s * _quantiles(K, P2)[-1] / P2)
+    cap = _LIST_STEP
+    while _poisson_below(cap * s / P2, m) > _OVERFLOW_P:
+        cap += _LIST_STEP
+    return cap
+
+
+def _screen_chunk(N: int, P1: int, cap: int) -> int:
+    """Queries of each cloud a screen launch covers: all of them, or as
+    many as keep the lists (N, chunk, cap) int64 within ``_LIST_BYTES``."""
+    return max(1, min(P1, _LIST_BYTES // (8 * cap * max(N, 1))))
 
 
 def _unseeded_topk(p1, p2, lengths2, K, norm, rows=None):
@@ -649,8 +754,9 @@ def _chain(launch, K, P2, seeds=None, gate=None, out=None):
     round of K keys, or ``_rounds`` chained 64-key rounds, round r admitting
     only candidates above round r-1's last (value, index). ``launch(k, lb,
     seed, gate, out)`` runs one round; ``seeds``: one (N, P1) seed a round,
-    or None; ``gate`` and ``out``: the repair rerun's gate word and the
-    per-round outputs it overwrites."""
+    or None; ``gate`` and ``out``: a repair rerun's (N, P1) int32 flags
+    (the kernel's query order) and the per-round outputs it overwrites for
+    the flagged queries."""
     rounds = _rounds(K, P2)
     k = K if K <= ROUND_K else ROUND_K
     ds, idxs, lb = [], [], None
@@ -698,16 +804,146 @@ def repair_gate(idxs, lengths2, K):
 def _seeded(launch, K, P2, lengths2, seeds):
     """The seeded rounds and their repair (``knn_pallas.py``
     ``_repair_sentinels``): where ``repair_gate`` is 1 every round reruns
-    unseeded into the same outputs, which leaves the unseeded result; then
-    every ``SENT`` slot left (past lengths2 or past the last round's K) is
-    set to (inf, 0), as unseeded."""
+    unseeded into the same outputs (the word flags every query), which
+    leaves the unseeded result; then every ``SENT`` slot left (past lengths2
+    or past the last round's K) is set to (inf, 0), as unseeded."""
     with tracing.span("knn.rounds"):
         ds, idxs = _chain(launch, K, P2, seeds)
     with tracing.span("knn.repair"):
-        _chain(launch, K, P2, None, repair_gate(idxs, lengths2, K), (ds, idxs))
+        gate = repair_gate(idxs, lengths2, K).expand(idxs[0].shape[:2]).contiguous()
+        _chain(launch, K, P2, None, gate, (ds, idxs))
         d, i = _join(ds, idxs, K)
         sent = i == SENT
         return torch.where(sent, _INF, d), torch.where(sent, 0, i)
+
+
+def _screened(screen, launch, K, P2, seed, cap):
+    """A seeded call of more than one round by screen and select: every
+    candidate below its query's seed is listed once and the K smallest by
+    (value, index) are read off the list into the rounds' outputs
+    (``screen(K, seed, cap, out)``, which returns the (N, P1) int32 flags);
+    a query whose list may lack one of them (a count below min(K,
+    lengths2) or above ``cap``, no finite seed) is flagged, and the chained
+    unseeded rounds rerun for it into the same outputs (``_chain`` gated on
+    the flags), which leaves the unseeded result. No host sync; no ``SENT``
+    is ever written."""
+    N, P1 = seed.shape
+    shape = (_rounds(K, P2), N, P1, ROUND_K)
+    out = (torch.empty(shape, dtype=torch.float32, device=seed.device),
+           torch.empty(shape, dtype=torch.int64, device=seed.device))
+    with tracing.span("knn.screen"):
+        flags = screen(K, seed, cap, out)
+    with tracing.span("knn.repair"):
+        ds, idxs = list(out[0].unbind(0)), list(out[1].unbind(0))
+        _chain(launch, K, P2, None, flags, (ds, idxs))
+        return _join(ds, idxs, K)
+
+
+def _screener(p1, p2, lengths2, norm, rows=None, cand_ids=None, plan=None,
+              stats=None):
+    """``screen(K, seed, cap, out)`` for ``_screened`` on CUDA tensors: the
+    screen and select kernels of ``csrc/knn.cu`` over chunks of queries
+    (``_screen_chunk``), under ``plan`` (default: ``_screen_card_plan``).
+    ``rows`` and ``cand_ids`` (int32): as for ``_launcher``. ``stats``: a
+    list to which each call appends {"cap", "counts", "flags"} (the lists'
+    whole lengths (N, P1) and the flags, kernel order); it costs copies."""
+    N, P1, D = p1.shape
+    P2 = p2.shape[1]
+    dev = p1.device
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def screen(K, seed, cap, out):
+        lib = _lib()
+        stream = _build.stream_ptr(dev)
+        chunk = _screen_chunk(N, P1, cap)
+        q, threads, tile = plan or _screen_card_plan(dev.index, N, chunk, P2, D, norm)
+        flags = torch.empty((N, P1), dtype=torch.int32, device=dev)
+        lists = torch.empty((N, chunk, cap), dtype=torch.int64, device=dev)
+        counts = torch.empty((N, chunk), dtype=torch.int32, device=dev)
+        seen = []
+        for q0 in range(0, P1, chunk):
+            nq = min(chunk, P1 - q0)
+            _build.check(
+                lib.knn_screen(p1.data_ptr(), p2.data_ptr(), lengths2.data_ptr(),
+                               ptr(rows), ptr(cand_ids), seed.data_ptr(), N, P1, P2, D,
+                               q0, nq, cap, norm, q, threads, tile, lists.data_ptr(),
+                               counts.data_ptr(), stream),
+                "knn_screen",
+            )
+            tracing.launch("knn_screen_cuda")
+            _build.check(
+                lib.knn_select(lists.data_ptr(), counts.data_ptr(), lengths2.data_ptr(),
+                               seed.data_ptr(), N, P1, P2, q0, nq, cap, K,
+                               out[0].data_ptr(), out[1].data_ptr(), flags.data_ptr(),
+                               stream),
+                "knn_select",
+            )
+            tracing.launch("knn_select_cuda")
+            if stats is not None:
+                seen.append(counts.view(-1)[:N * nq].view(N, nq).clone())
+        if stats is not None:
+            stats.append({"cap": cap, "counts": torch.cat(seen, dim=1),
+                          "flags": flags.clone()})
+        return flags
+
+    return screen
+
+
+# A key no listed candidate takes: above every (float bits of d) << 32 | j.
+_NO_KEY = 2**63 - 1
+
+
+def screen_keys(d, j):
+    """The screen's 64-bit keys (csrc/knn.cu): (float bits of d) << 32 | j,
+    as int64, for d >= 0 (never -0) float32 and 0 <= j < 2**31; their order
+    is (value, index) order."""
+    return (d.contiguous().view(torch.int32).to(torch.int64) << 32) | j
+
+
+def _unkey(keys):
+    """(values, indices) of screen keys; ``_NO_KEY`` gives (inf, 0)."""
+    none = keys == _NO_KEY
+    vals = (keys >> 32).to(torch.int32).view(torch.float32)
+    return torch.where(none, _INF, vals), torch.where(none, 0, keys & 0xFFFFFFFF)
+
+
+def _plain_screener(p1, p2, lengths2, norm, ids=None):
+    """``screen`` for ``_screened`` on the plain twin, queries in their
+    given order: the distances, ``d < seed``, each query's count and flag,
+    and the K smallest kept candidates by their ``screen_keys`` (index:
+    ``ids``, p2's original indices, where p2 is reordered) written to every
+    row's slots; a flagged row's are then overwritten by the repair."""
+    N, P1, _ = p1.shape
+    P2 = p2.shape[1]
+    pos = torch.arange(P2, device=p1.device)
+    j = pos.expand(N, P2) if ids is None else ids
+    len2 = lengths2.clamp(0, P2)
+
+    def screen(K, seed, cap, out):
+        flags = torch.empty((N, P1), dtype=torch.int32, device=p1.device)
+        step = max(1, _FULL_MATRIX_MAX_ELEMS // max(1, N * P2))
+        for a in range(0, P1, step):
+            rows = slice(a, a + step)
+            d = pairwise_dist(p1[:, rows], p2, norm)
+            sd = seed[:, rows]
+            kept = (d < sd[..., None]) & (pos < len2[:, None, None])
+            count = kept.sum(dim=-1)
+            flags[:, rows] = (~(sd < _INF) | (count < len2.clamp(max=K)[:, None])
+                              | (count > cap)).to(torch.int32)
+            keys = torch.where(kept, screen_keys(d, j[:, None, :]), _NO_KEY)
+            vals, idx = _unkey(torch.sort(keys, dim=-1).values[..., :min(K, P2)])
+            if K > vals.shape[-1]:
+                vals = torch.nn.functional.pad(vals, (0, K - vals.shape[-1]), value=_INF)
+                idx = torch.nn.functional.pad(idx, (0, K - idx.shape[-1]))
+            for r in range(out[0].shape[0]):
+                lo, hi = r * ROUND_K, min((r + 1) * ROUND_K, K)
+                out[0][r, :, rows, :hi - lo] = vals[..., lo:hi]
+                out[1][r, :, rows, :hi - lo] = idx[..., lo:hi]
+        return flags
+
+    return screen
 
 
 def _launcher(p1, p2, lengths2, norm, plan: Plan, rows=None, cand_ids=None,
@@ -755,15 +991,19 @@ def _launch_rounds(p1, p2, lengths2, K, norm, plan: Plan, rows=None,
 
 def _plain_launcher(p1, p2, lengths2, norm, ids=None):
     """``launch`` for ``_chain`` on the plain twin, queries in their given
-    order; a gate is read on the host (these are not CUDA tensors)."""
+    order; a gate's flags are read on the host (these are not CUDA tensors),
+    and only the flagged queries' outputs are overwritten."""
     def launch(k, lb, seed, gate, out):
         if gate is not None:
             tracing.sync("knn.plain_gate")
-            if not bool(gate):
+            if not bool(gate.any()):
                 return out
         d, i = _plain_round(p1, p2, lengths2, k, norm, ids, lb, seed)
         if out is None:
             return d, i
+        if gate is not None:
+            flagged = gate.bool()[..., None]
+            d, i = torch.where(flagged, d, out[0]), torch.where(flagged, i, out[1])
         out[0].copy_(d)
         out[1].copy_(i)
         return out
@@ -771,25 +1011,34 @@ def _plain_launcher(p1, p2, lengths2, norm, ids=None):
     return launch
 
 
-def _topk(p1, p2, lengths2, K, norm, make_launch, sort_queries, sort_candidates,
+def _topk(p1, p2, lengths2, K, norm, make_launchers, sort_queries, sort_candidates,
           s=None, ub=None):
     """One call on either device: the sorts asked for, then the rounds of
-    ``make_launch(q, ref, order, rows)``, seeded from bounds on an
-    ``s``-point sample (with the repair) if ``s`` is given, or from the
-    inclusive bound ``ub`` (raw, one round), else unseeded."""
+    ``make_launchers(q, ref, order, rows)`` = (launch, screen), seeded from
+    bounds on an ``s``-point sample if ``s`` is given (more than one round
+    and K <= ``_SELECT_MAX_K``: screen and select at the last quantile's
+    bound, then the repair of the flagged queries; else the seeded rounds
+    and their repair), or from the inclusive bound ``ub`` (raw, one round),
+    else unseeded."""
     P2 = p2.shape[1]
 
     def topk(q, ref, order, rows):
-        launch = make_launch(q, ref, order, rows)
+        launch, screen = make_launchers(q, ref, order, rows)
         if ub is not None:
             u = ub if rows is None else torch.gather(ub, 1, rows)
             with tracing.span("knn.rounds"):
                 d, i = _join(*_chain(launch, K, P2, [seed_of(u)]), K)
         elif s is not None:
+            kqs = _quantiles(K, P2)
+            screened = len(kqs) > 1 and K <= _SELECT_MAX_K
             with tracing.span("knn.bounds"):
-                taus = kth_bounds(q, ref, lengths2, _quantiles(K, P2), norm, s, rows)
+                taus = kth_bounds(q, ref, lengths2, kqs[-1:] if screened else kqs,
+                                  norm, s, rows)
                 seeds = [seed_of(t) for t in taus]
-            d, i = _seeded(launch, K, P2, lengths2, seeds)
+            if screened:
+                d, i = _screened(screen, launch, K, P2, seeds[0], screen_cap(K, P2, s))
+            else:
+                d, i = _seeded(launch, K, P2, lengths2, seeds)
         else:
             with tracing.span("knn.rounds"):
                 d, i = _join(*_chain(launch, K, P2), K)
@@ -815,7 +1064,8 @@ def _check_ub(ub, p1, K, sample_bound):
 
 def knn_topk_cuda(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
                   sort_candidates=None, sample_bound=None, sample_s=None, ub=None,
-                  instrument: bool = False, _plan: Plan | None = None):
+                  instrument: bool = False, _plan: Plan | None = None,
+                  _stats: list | None = None):
     """Launch ``csrc/knn.cu`` on CUDA tensors: float32 points, int64
     lengths, all contiguous and on one device. K > 64 runs ceil(K/64)
     chained rounds. Returns (dists (N, P1, K) float32, idx (N, P1, K) int64),
@@ -829,10 +1079,13 @@ def knn_topk_cuda(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
     5 <= K <= 64): asked for elsewhere, they raise. ``sample_bound``:
     seed from bounds on a ``sample_s``-point sample (default
     ``_default_sample_s``; None: ``seed_gate``), with the repair, no host
-    sync; not with ``instrument``. ``ub`` (N, P1) float32: seed one round
+    sync; not with ``instrument``. A seeded call of more than one round
+    runs the screen and select kernels instead of seeded rounds
+    (``_screened``). ``ub`` (N, P1) float32: seed one round
     (1 < K <= 64) at ``seed_of(ub)`` and return the raw state, ``SENT``
     slots included. ``_plan`` forces a
-    launch plan (``tune_knn.py``); by default ``_launch_plan`` picks it."""
+    launch plan (``tune_knn.py``); by default ``_launch_plan`` picks it.
+    ``_stats``: see ``_screener`` (``chip_smoke.py``)."""
     _check_inputs(p1, p2, lengths2, K, norm)
     _check_ub(ub, p1, K, sample_bound)
     N, P1, D = p1.shape
@@ -864,14 +1117,16 @@ def knn_topk_cuda(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
     counts = (torch.zeros((N, -(-P1 // block), len(COUNTERS)), dtype=torch.int64,
                           device=dev) if instrument else None)
 
-    def make_launch(q, ref, order, rows):
+    def make_launchers(q, ref, order, rows):
         rows32 = None if rows is None else rows.to(torch.int32)
+        ids = None if order is None else order.ids
+        screen = _screener(q, ref, lengths2, norm, rows32, ids, stats=_stats)
         if order is None:
-            return _launcher(q, ref, lengths2, norm, plan, rows32, counts=counts)
+            return _launcher(q, ref, lengths2, norm, plan, rows32, counts=counts), screen
         return _launcher(q, ref, lengths2, norm, plan, rows32, order.ids,
-                         scan_starts(q, order, block, plan.tile, rows), counts)
+                         scan_starts(q, order, block, plan.tile, rows), counts), screen
 
-    d, i = _topk(p1, p2, lengths2, K, norm, make_launch, sort_queries,
+    d, i = _topk(p1, p2, lengths2, K, norm, make_launchers, sort_queries,
                  sort_candidates, s if seeded else None, ub)
     return (d, i, counts) if instrument else (d, i)
 
@@ -897,11 +1152,12 @@ def knn_topk(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
         s = sample_s or _default_sample_s(P2)
         seeded = ub is None and seed_gate(K, P2, s, False, sample_bound)
 
-        def make_launch(q, ref, order, rows):
-            return _plain_launcher(q if rows is None else _gather_rows(q, rows), ref,
-                                   lengths2, norm,
-                                   None if order is None else order.ids.to(torch.int64))
+        def make_launchers(q, ref, order, rows):
+            q = q if rows is None else _gather_rows(q, rows)
+            ids = None if order is None else order.ids.to(torch.int64)
+            return (_plain_launcher(q, ref, lengths2, norm, ids),
+                    _plain_screener(q, ref, lengths2, norm, ids))
 
-        return _topk(p1, p2, lengths2, K, norm, make_launch, sq, sc,
+        return _topk(p1, p2, lengths2, K, norm, make_launchers, sq, sc,
                      s if seeded else None, ub)
     raise ValueError(f"knn_topk: no kernel for device {p1.device}")

@@ -3,7 +3,7 @@
 Spans mark the port's layers (``PERF.md`` §3): each public op and
 ``Pointclouds.update_padded``, each autograd Function's backward
 (``<Function>.bwd``), the stages of the KNN forward (``knn.sort``,
-``knn.bounds``, ``knn.rounds``, ``knn.repair``) and each kernel wrapper call
+``knn.bounds``, ``knn.rounds``, ``knn.screen``, ``knn.repair``) and each kernel wrapper call
 (``knn_topk``, ``chamfer_nn``, ``scatter``, ``ball_query_points``,
 ``fps``).
 Counters name what they count: ``sync.<site>`` each read of tensor values

@@ -39,8 +39,14 @@ sample pass and repair, the bounds alone (``kth_bounds``), the sample's
 KNN alone, the seeded and unseeded rounds alone, each sample size in
 ``SAMPLE_SIZES`` of the shape, the candidates sorted too, and the
 counters' insertions a query with and without the seed. Every seeded
-call is held bit-equal to the unseeded one. Exits 1 without a CUDA
-device.
+call is held bit-equal to the unseeded one.
+
+Then the screen column (``--screen`` runs it alone): the screen and select
+of a seeded call of more than one round (``kernels/knn.py`` ``_screener``)
+at the north star, K=100, the queries sorted, under every feasible screen
+plan (queries a thread, threads, tile; ``screen_plans``), each held
+bit-equal to the unseeded call with no query flagged, beside the plan
+``knn_topk_cuda`` picks. Exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -262,6 +268,39 @@ def _seed_table(kk, rng, dev):
     return lines
 
 
+def _screen_column(kk, rng, dev, K=100):
+    """The screen column's line: every screen plan's time at the north
+    star (screen and select, one call a chunk, CUDA events)."""
+    from .kernels import spatial_sort as ss
+
+    p1, p2 = (torch.randn((1, 100_000, 3), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(s))
+              for s in rng.integers(0, 2**31, size=2).tolist())
+    lengths2 = torch.full((1,), 100_000, dtype=torch.int64, device=dev)
+    P2 = p2.shape[1]
+    s = kk._default_sample_s(P2)
+    rows = ss.morton_order(p1)
+    seed = kk.seed_of(kk.kth_bounds(p1, p2, lengths2, [K], 2, s, rows)[0])
+    cap = kk.screen_cap(K, P2, s)
+    base = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sample_bound=False)
+    base = (kk._gather_rows(base[0], rows), kk._gather_rows(base[1], rows))
+    shape = (kk._rounds(K, P2), 1, p1.shape[1], kk.ROUND_K)
+    out = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int64,
+                                                      device=dev))
+    chosen, plans = kk.screen_plans(p1, p2, 2, kk._screen_chunk(1, p1.shape[1], cap))
+    times = {}
+    for plan in plans:
+        screen = kk._screener(p1, p2, lengths2, 2, rows.int(), plan=plan)
+        flags = screen(K, seed, cap, out)
+        d, i = kk._join(list(out[0]), list(out[1]), K)
+        if flags.any() or not (torch.equal(d, base[0]) and torch.equal(i, base[1])):
+            raise RuntimeError(f"tune_knn: screen plan {kk.plan_name(plan)} disagrees "
+                               "with the unseeded call")
+        times[kk.plan_name(plan)] = _ms(lambda: screen(K, seed, cap, out))
+    return json.dumps({"shape": "north star", "K": K, "screen plan": kk.plan_name(chosen),
+                       "ms": times[kk.plan_name(chosen)], "cap": cap, "plans": times})
+
+
 def _table_line(label, K, r):
     ms = " / ".join(f"{r['sorted_ms'][n]:.3f} ({r['kernel_ms'][n]:.3f})"
                     if n in r["sorted_ms"] else "-" for n in SORTS)
@@ -277,6 +316,8 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="also append the lines here")
     ap.add_argument("--seeding", action="store_true",
                     help="run the seeding table alone")
+    ap.add_argument("--screen", action="store_true",
+                    help="run the screen column alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tune_knn: no CUDA device", file=sys.stderr)
@@ -289,7 +330,8 @@ def main() -> int:
     card_plans = getattr(kk, "card_plans", None)
     has_sorts = hasattr(kk, "candidate_order")
     lines, table = [], []
-    for label, p1, p2, lengths2 in ([] if args.seeding else _shapes(rng, dev)):
+    only = args.seeding or args.screen
+    for label, p1, p2, lengths2 in ([] if only else _shapes(rng, dev)):
         N, P1, _ = p1.shape
         sub = min(P1, -(-CHECK_QUERIES // N))
         row = {"shape": label, "N": N, "P1": P1, "P2": p2.shape[1], "D": 3, "K": {}}
@@ -328,9 +370,12 @@ def main() -> int:
                 "included) | ratio | the gate's pick")
         print(head)
         table += [head, *_gate_table(kk, rng, dev)]
-    if hasattr(kk, "kth_bounds"):
+    if hasattr(kk, "kth_bounds") and not args.screen:
         print("seeding table: ms, queries sorted where the gate sorts them")
         table += ["seeding table", *_seed_table(kk, rng, dev)]
+    if hasattr(kk, "screen_plans") and not args.seeding:
+        table += ["screen column", _screen_column(kk, rng, dev)]
+        print(table[-1], flush=True)
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,

@@ -208,16 +208,18 @@ def _counting_rounds(monkeypatch):
 
 @pytest.mark.parametrize("K", [16, 100])
 def test_too_tight_bounds_are_repaired(monkeypatch, K):
-    """Bounds of -1 (every slot left at SENT): the gate word is 1, every
-    round runs again unseeded, and the result is the unseeded one. With the
-    real bounds the rerun is skipped."""
+    """Bounds of -1 (every slot of a seeded round left at SENT; at K > 64
+    every screened list short of K): the gate word is 1 (every query
+    flagged), every round runs again unseeded, and the result is the
+    unseeded one. With the real bounds the rerun is skipped."""
     p1, p2 = _normal(35, 1, 41, 1024)
     args = (_t(p1), _t(p2), torch.tensor([1024]))
     base = kk.knn_topk(*args, K, 2)
     rounds = kk._rounds(K, 1024)
+    screened = rounds > 1  # screen and select in place of seeded rounds
     calls = _counting_rounds(monkeypatch)
     _same(kk.knn_topk(*args, K, 2, sample_bound=True, sample_s=256), base)
-    assert len(calls) == 1 + rounds  # the sample pass and the seeded rounds
+    assert len(calls) == 1 + (0 if screened else rounds)  # the sample pass, rounds
 
     def bad_bounds(p1, p2, lengths2, kqs, norm, s, rows=None):
         return [torch.full(p1.shape[:2], -1.0) for _ in kqs]
@@ -225,7 +227,7 @@ def test_too_tight_bounds_are_repaired(monkeypatch, K):
     monkeypatch.setattr(kk, "kth_bounds", bad_bounds)
     calls.clear()
     _same(kk.knn_topk(*args, K, 2, sample_bound=True, sample_s=256), base)
-    assert len(calls) == 2 * rounds
+    assert len(calls) == (1 if screened else 2) * rounds
     seeds = [kk.seed_of(t) for t in bad_bounds(*args, kk._quantiles(K, 1024), 2, 256)]
     launch = kk._plain_launcher(*args, 2)
     ds, idxs = kk._chain(launch, K, 1024, seeds)

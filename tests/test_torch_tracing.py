@@ -211,7 +211,8 @@ def test_knn_stages_of_the_sorted_seeded_path():
     for r in tracing.records():
         by_name.setdefault(r.name, []).append(r)
     (top,) = by_name["knn_topk"]
-    assert sorted(by_name) == ["knn.bounds", "knn.repair", "knn.rounds", "knn.sort",
+    # K > 64 seeded: screen and select in place of the seeded rounds.
+    assert sorted(by_name) == ["knn.bounds", "knn.repair", "knn.screen", "knn.sort",
                                "knn_topk"]
     assert len(by_name["knn.sort"]) == 2  # the query order, and the outputs put back
     assert all(r.parent == top.id for name in by_name if name != "knn_topk"

@@ -27,20 +27,26 @@ from .utils import masked_gather
 
 def _normalize_K(K, N: int, device) -> Tuple[torch.Tensor, int]:
     """K as an int, a list or tuple, or an (N,) array or tensor, to an (N,)
-    int64 tensor on ``device`` and its maximum as a host int."""
+    int64 tensor on ``device`` and its maximum as a host int. The maximum of
+    a K given on the host is taken there, so only a K given as a tensor is
+    read back (``sync.fps.max_k``)."""
     if isinstance(K, (int, np.integer)):
-        K_t = torch.full((N,), int(K), dtype=torch.int64)
-    else:
-        K_t = torch.as_tensor(np.asarray(K) if isinstance(K, (list, tuple)) else K)
-        K_t = K_t.to(torch.int64).reshape(-1)
-    if K_t.shape[0] != N:
+        K_t = torch.full((N,), int(K), dtype=torch.int64, device=device)
+        return K_t, max(int(K), 0) if N else 0
+    if isinstance(K, torch.Tensor):
+        K_t = K.to(torch.int64).reshape(-1)
+        if K_t.shape[0] != N:
+            raise ValueError("K and points must have the same batch dimension")
+        K_t = K_t.to(device)
+        if not K_t.numel():
+            return K_t, 0
+        tracing.sync("fps.max_k")
+        return K_t, max(int(K_t.max()), 0)
+    K_np = np.asarray(K).astype(np.int64).reshape(-1)
+    if K_np.shape[0] != N:
         raise ValueError("K and points must have the same batch dimension")
-    K_t = K_t.to(device)
-    if not K_t.numel():
-        return K_t, 0
-    tracing.sync("fps.max_k")
-    max_K = int(K_t.max())
-    return K_t, max(max_K, 0)
+    max_K = max(int(K_np.max()), 0) if K_np.size else 0
+    return torch.as_tensor(K_np).to(device), max_K
 
 
 def route(points: torch.Tensor):

@@ -3,9 +3,12 @@
 Spans mark the port's layers (``PERF.md`` §3): each public op and
 ``Pointclouds.update_padded``, each autograd Function's backward
 (``<Function>.bwd``), the stages of the KNN forward (``knn.sort``,
-``knn.bounds``, ``knn.rounds``, ``knn.screen``, ``knn.repair``) and each kernel wrapper call
+``knn.bounds``, ``knn.rounds``, ``knn.screen``, ``knn.repair``), each kernel wrapper call
 (``knn_topk``, ``chamfer_nn``, ``scatter``, ``ball_query_points``,
-``fps``).
+``fps``), and the stages of the PointNet++ model (``models/pointnet2.py``):
+``pointnet2.plan`` (FPS and ball query of both sampled levels, their op
+spans inside it), ``pointnet2.group``, ``pointnet2.mlp`` and
+``pointnet2.pool`` once a set-abstraction level, and ``pointnet2.head``.
 Counters name what they count: ``sync.<site>`` each read of tensor values
 to the host (whatever the tensor's device, so a CPU run counts what the
 card would), ``launch.<wrapper>`` each launch of a hand-written kernel.

@@ -131,6 +131,25 @@ def test_naive_oracle_matches_jax_naive_and_the_op():
     assert torch.equal(naive_idx, op_idx) and torch.equal(naive_pts, op_pts)
 
 
+def test_k_given_on_the_host_is_not_read_back():
+    """An int, list, tuple or numpy K takes its maximum on the host before
+    the copy: no ``sync.fps.max_k``, and the indices of a K given as a
+    tensor, which is still read back once."""
+    from pytorch3d_pointops_tpu_torch import tracing
+
+    pts = torch.from_numpy(_points(3, 4, 700))
+    lengths = torch.tensor([700, 650, 600, 512])
+    tracing.clear()
+    _, want = ppt.sample_farthest_points(pts, lengths, K=torch.full((4,), 512))
+    assert tracing.counts("sync.") == {"sync.fps.max_k": 1}
+    for K in (512, np.int64(512), [512] * 4, (512,) * 4, np.full(4, 512)):
+        tracing.clear()
+        _, idx = ppt.sample_farthest_points(pts, lengths, K=K)
+        assert tracing.counts("sync.") == {}, K
+        assert torch.equal(idx, want), K
+    tracing.clear()
+
+
 def test_random_start():
     """Starts are floor(u * max(length, 1)) clipped to length - 1, with u
     from the generator; without a generator the op raises."""

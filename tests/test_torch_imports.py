@@ -51,6 +51,8 @@ def test_port_imports_no_jax():
         "pytorch3d_pointops_tpu_torch.tune_knn",
         "pytorch3d_pointops_tpu_torch.tune_scatter",
         "pytorch3d_pointops_tpu_torch.tracing",
+        "pytorch3d_pointops_tpu_torch.models",
+        "pytorch3d_pointops_tpu_torch.models.pointnet2",
         "pytorch3d_pointops_tpu_torch.structures.pointclouds",
         "pytorch3d_pointops_tpu_torch.convert",
         "pytorch3d_pointops_tpu_torch._build",

@@ -89,16 +89,20 @@ runs ``packed_to_padded``, ``padded_to_packed`` (with gradients) and ``sample_pd
 against CPU tensors.
 
 Phase 5 checks the KNN kernel's kth-bound seeding: the north-star
-``knn_points`` step at K=100 (seeded by default: the sample pass, two
-seeded 64-key rounds with the queries sorted, two gated repair launches
-that return at once, the backward's scatter) as a main path with its own
+``knn_points`` step at K=100 (seeded by default: the sample pass, the
+screen's candidate order, the screen and the select with the queries
+sorted, two gated repair launches that return at once, the backward's
+scatter) as a main path with its own
 launch counts, its forward under ``torch.cuda.set_sync_debug_mode("error")``,
 against the plain path on the card (every query's indices and distances,
 both gradients); seeded calls bit-equal to unseeded ones at the north star
 (K=100 in both norms, K=16 and K=64 opted in), on the 20k tie cloud, the
 duplicated cloud and the ragged batch (bounds off for its lengths 0 and 1),
 each with the queries, the candidates and both sorted, all without a host
-sync; bounds of -1 forcing the repair (its gate word 1, four launches, the
+sync; the screen's skip (``screen5``: its order equal to the plain twin,
+counts equal to the full scan's, the scanned share, a forced short last
+chunk, a P2 = 16,384, K = 1,000 call timed with and without it); bounds
+of -1 forcing the repair (its gate word 1, five launches, the
 result exact); a raw ``ub=`` round bit-equal to the plain twin, sentinel
 slots included; the counters' insertions with and without a seed at K=16
 and 64; and seeded against unseeded times.
@@ -601,7 +605,14 @@ def screen5(kk, p1, p2, lengths2, plan, s):
     sorted as the gate sorts them); the lists' lengths against the capacity
     and the queries flagged over 20 calls on fresh clouds; the screen's and
     the select's times beside the two seeded rounds they replaced, in one
-    call (CUDA events, median of 10)."""
+    call (CUDA events, median of 10). The skip (D = 3): the screen's order
+    (points, indices, boxes) equal to its plain twin, at the north star and
+    on a ragged batch; the skipping screen's per-query counts and outputs
+    equal to the full scan's (``_screen_skips`` off); its scanned share; a
+    forced short last chunk (``_LIST_BYTES`` small) bit-equal to the
+    unseeded rounds; at P2 = 16,384, K = 1,000 (``sample_s`` 1,024, lists of
+    about a ninth of the cloud) the result bit-equal to unseeded and the
+    screen's time with and without the skip."""
     from pytorch3d_pointops_tpu_torch.kernels import spatial_sort as ss
 
     dev = p1.device
@@ -612,10 +623,52 @@ def screen5(kk, p1, p2, lengths2, plan, s):
         out = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, _stats=stats)
     require(torch.equal(out[0], base[0]) and torch.equal(out[1], base[1]),
             "screen and select K=100: differs from the unseeded rounds")
+    real_skips = kk._screen_skips
+    full_stats = []
+    kk._screen_skips = lambda D: False
+    try:
+        full = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, _stats=full_stats)
+    finally:
+        kk._screen_skips = real_skips
+    require(full_stats[0]["scanned"] is None and stats[0]["scanned"] is not None
+            and torch.equal(stats[0]["counts"], full_stats[0]["counts"])
+            and torch.equal(stats[0]["flags"], full_stats[0]["flags"])
+            and torch.equal(full[0], out[0]) and torch.equal(full[1], out[1]),
+            "the skipping screen: counts, flags or outputs differ from the full scan")
+    share = stats[0]["scanned"].item()
+    # The order against its twin: the north star, then a ragged batch with
+    # garbage past lengths2 (0, 1, part; a cloud of 4 distinct points).
+    g = torch.Generator(device=dev).manual_seed(7)
+    rag = torch.randn((4, 20000, 3), device=dev, generator=g)
+    rag[1, 1:] = 1e30
+    rag[2, 13000:] = -1e30
+    rag[3] = rag[3, torch.arange(20000, device=dev) % 4]
+    rag_len = torch.tensor([20000, 1, 13000, 0], device=dev)
+    ids = torch.randperm(20000, device=dev, generator=g).int()[None].expand(4, -1)
+    for what, (pts, l2, cid) in {"north star": (p2, lengths2, None),
+                                 "ragged": (rag, rag_len, ids.contiguous())}.items():
+        got = kk.screen_order_cuda(pts, l2, cid)
+        want = kk.screen_order_plain(pts.cpu(), l2.cpu(),
+                                     None if cid is None else cid.cpu())
+        require(torch.equal(got[0].cpu().view(torch.int32), want[0].view(torch.int32))
+                and torch.equal(got[1].cpu(), want[1]),
+                f"screen order ({what}): differs from screen_order_plain")
+    # A forced short last chunk: lists for 30,000 queries a launch.
+    cap = kk.screen_cap(K, P2, s)
+    real_bytes = kk._LIST_BYTES
+    chunk_stats = []
+    kk._LIST_BYTES = 8 * cap * 30000
+    try:
+        with no_host_sync():
+            chunked = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, _stats=chunk_stats)
+    finally:
+        kk._LIST_BYTES = real_bytes
+    require(torch.equal(chunked[0], base[0]) and torch.equal(chunked[1], base[1])
+            and torch.equal(chunk_stats[0]["counts"], stats[0]["counts"]),
+            "screen in chunks of 30,000 queries: differs from the unseeded rounds")
     rows = ss.morton_order(p1)
     rows32 = rows.int()
     seed = kk.seed_of(kk.kth_bounds(p1, p2, lengths2, [K], 2, s, rows)[0])
-    cap = kk.screen_cap(K, P2, s)
     shape = (kk._rounds(K, P2), 1, p1.shape[1], kk.ROUND_K)
     buf = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int64,
                                                       device=dev))
@@ -628,7 +681,6 @@ def screen5(kk, p1, p2, lengths2, plan, s):
             and torch.equal(sel[1][:, sub], ref[1]),
             "screen and select K=100: flagged queries, or rows differ from the plain twin")
     lengths, flagged = [], 0
-    g = torch.Generator(device=dev).manual_seed(5)
     for _ in range(20):
         q = torch.randn(p1.shape, device=dev, generator=g)
         r = torch.randn(p2.shape, device=dev, generator=g)
@@ -651,14 +703,20 @@ def screen5(kk, p1, p2, lengths2, plan, s):
         "repair, nothing flagged": cuda_ms(
             lambda: kk._chain(launch, K, P2, None, flags,
                               (list(buf[0]), list(buf[1]))), reps=10),
+        "order kernel": cuda_ms(lambda: kk.screen_order_cuda(p2, lengths2), reps=10),
     }
+    order_p, order_boxes = kk.screen_order_cuda(p2, lengths2)
     lists = torch.empty((1, p1.shape[1], cap), dtype=torch.int64, device=dev)
     counts = torch.empty((1, p1.shape[1]), dtype=torch.int32, device=dev)
     lib, stream = kk._lib(), kk._build.stream_ptr(dev)
-    args = (p1.data_ptr(), p2.data_ptr(), lengths2.data_ptr(), rows32.data_ptr(), None,
-            seed.data_ptr(), 1, p1.shape[1], P2, 3, 0, p1.shape[1], cap, 2, *splan,
-            lists.data_ptr(), counts.data_ptr(), stream)
-    ms["screen kernel"] = cuda_ms(lambda: lib.knn_screen(*args), reps=10)
+    for name, (cands, boxes) in {"screen kernel, full scan": (p2, None),
+                                 "screen kernel, skipping": (order_p, order_boxes)}.items():
+        args = (p1.data_ptr(), cands.data_ptr(), lengths2.data_ptr(), rows32.data_ptr(),
+                None, seed.data_ptr(),
+                None if boxes is None else boxes.data_ptr(), 1, p1.shape[1], P2, 3, 0,
+                p1.shape[1], cap, 2, *splan, lists.data_ptr(), counts.data_ptr(), None,
+                stream)
+        ms[name] = cuda_ms(lambda args=args: lib.knn_screen(*args), reps=10)
     ms["select kernel"] = cuda_ms(lambda: lib.knn_select(
         lists.data_ptr(), counts.data_ptr(), lengths2.data_ptr(), seed.data_ptr(), 1,
         p1.shape[1], P2, 0, p1.shape[1], cap, K, buf[0].data_ptr(), buf[1].data_ptr(),
@@ -667,9 +725,52 @@ def screen5(kk, p1, p2, lengths2, plan, s):
           f"rounds, 4,096 rows bit-equal to the plain twin; lists over 20 calls on fresh "
           f"clouds: mean {c.mean().item():.1f}, p99 {c.quantile(0.99).item():.0f}, max "
           f"{c.max().item():.0f} entries of {cap}, {flagged} of 2,000,000 queries flagged")
+    print(f"  the skip: order equal to its twin (north star, ragged batch); counts, flags "
+          f"and outputs equal to the full scan's; {share:.4f} of (warp, segment) pairs "
+          f"scanned; chunks of 30,000 queries bit-equal to unseeded")
     print(f"  north-star K=100 ms (one call, queries sorted): "
           f"{json.dumps({k: round(v, 4) for k, v in ms.items()})}; {gpu_line()}")
     require(flagged == 0, f"screen and select K=100: {flagged} queries flagged in 20 calls")
+
+    # Lists over a ninth of the cloud: P2 = 16,384, K = 1,000, a 1,024-point
+    # sample; the screen with and without the skip, the queries unsorted (as
+    # the gate leaves them at this size) and sorted.
+    q = torch.randn((1, 16384, 3), device=dev, generator=g)
+    r = torch.randn((1, 16384, 3), device=dev, generator=g)
+    l16 = torch.tensor([16384], device=dev)
+    K16, s16 = 1000, 1024
+    big = []
+    with no_host_sync():
+        got = kk.knn_topk_cuda(q, r, l16, K16, 2, sample_s=s16, _stats=big)
+    want = kk.knn_topk_cuda(q, r, l16, K16, 2, sample_bound=False)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "P2 = 16,384, K = 1,000: the screen differs from the unseeded rounds")
+    cap16 = kk.screen_cap(K16, 16384, s16)
+    shape16 = (kk._rounds(K16, 16384), 1, 16384, kk.ROUND_K)
+    buf16 = (torch.empty(shape16, device=dev),
+             torch.empty(shape16, dtype=torch.int64, device=dev))
+    t16 = {}
+    for sort in (False, True):
+        rows16 = ss.morton_order(q) if sort else None
+        seed16 = kk.seed_of(kk.kth_bounds(q, r, l16, [K16], 2, s16, rows16)[0])
+        screen16 = kk._screener(q, r, l16, 2, None if rows16 is None else rows16.int())
+        name = "queries sorted" if sort else "queries unsorted"
+        t16[f"{name}, skip"] = cuda_ms(lambda: screen16(K16, seed16, cap16, buf16), reps=10)
+        kk._screen_skips = lambda D: False
+        try:
+            t16[f"{name}, full scan"] = cuda_ms(lambda: screen16(K16, seed16, cap16, buf16),
+                                                reps=10)
+        finally:
+            kk._screen_skips = real_skips
+        st = []
+        kk._screener(q, r, l16, 2, None if rows16 is None else rows16.int(),
+                     stats=st)(K16, seed16, cap16, buf16)
+        t16[f"{name}, scanned share"] = st[0]["scanned"].item()
+    c16 = big[0]["counts"].float()
+    print(f"  P2 = 16,384, K = 1,000 (sample 1,024): bit-equal to unseeded; lists mean "
+          f"{c16.mean().item():.0f} of cap {cap16} (cap / P2 {cap16 / 16384:.3f}); screen "
+          f"and select ms (order included) and scanned shares "
+          f"{json.dumps({k: round(v, 4) for k, v in t16.items()})}")
 
 
 @contextlib.contextmanager
@@ -709,7 +810,8 @@ def phase5(cases, plain_path, note_err):
     # backward's scatter, every launch counter set to 0 just before.
     q = ns_p1.detach().requires_grad_(True)
     r = ns_p2.detach().requires_grad_(True)
-    c5 = ("knn_topk_cuda", "knn_screen_cuda", "knn_select_cuda", "scatter_add_rows")
+    c5 = ("knn_topk_cuda", "knn_screen_order_cuda", "knn_screen_cuda", "knn_select_cuda",
+          "scatter_add_rows")
     reset_launches()
     # -- the K=100 main path: nothing but what a user would call --
     torch.cuda.synchronize()
@@ -722,9 +824,10 @@ def phase5(cases, plain_path, note_err):
     launches5 = launch_counts(c5)
     # -- end of the K=100 main path --
     print(f"phase 5: north-star K=100 launches {json.dumps(launches5)} (sample pass, "
-          f"2 gated repair launches; screen, select; scatter); fwd+bwd {step_ms:.1f} ms "
+          f"2 gated repair launches; the screen's order, screen, select; scatter); fwd+bwd {step_ms:.1f} ms "
           "(first call; the forward without a host sync)")
-    require(launches5 == {"knn_topk_cuda": 3, "knn_screen_cuda": 1, "knn_select_cuda": 1,
+    require(launches5 == {"knn_topk_cuda": 3, "knn_screen_order_cuda": 1,
+                          "knn_screen_cuda": 1, "knn_select_cuda": 1,
                           "scatter_add_rows": 1},
             f"north-star K=100: launches {launches5}")
     require(bool(torch.isfinite(out.dists).all()) and bool(torch.isfinite(q.grad).all())
@@ -798,14 +901,14 @@ def phase5(cases, plain_path, note_err):
         reset_launches()
         with no_host_sync():
             forced = kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, 100, 2, _stats=forced_stats)
-        forced_launches = launch_counts(c5[:3])
+        forced_launches = launch_counts(c5[:4])
     finally:
         kk.kth_bounds = real
     base = kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, 100, 2, sample_bound=False)
     flagged = int(forced_stats[0]["flags"].sum())
     require(gate == 1 and flagged == 100000
-            and forced_launches == {"knn_topk_cuda": 2, "knn_screen_cuda": 1,
-                                    "knn_select_cuda": 1}
+            and forced_launches == {"knn_topk_cuda": 2, "knn_screen_order_cuda": 1,
+                                    "knn_screen_cuda": 1, "knn_select_cuda": 1}
             and torch.equal(forced[0], base[0]) and torch.equal(forced[1], base[1]),
             f"forced repair: gate {gate}, {flagged} flagged, {forced_launches} "
             "launches, or not exact")

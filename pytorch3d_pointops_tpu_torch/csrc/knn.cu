@@ -102,6 +102,33 @@
 // decides each candidate that passes. The select is bound by its reads of
 // the lists (about 490 keys a query at the north star).
 //
+// The screen's skip (D = 3): a query lists about 490 of 100,000 candidates
+// at the north star, so a scan of all of them computes ~99.5 % of its
+// distances for nothing. knn_screen_order_kernel (one launch, a cluster of
+// blocks a cloud) sorts the cloud's valid rows by a coarse Morton cell code
+// (a stable radix sort: the order is deterministic), writes the sorted
+// points, each with its original index in its fourth float (so every key
+// still holds an original index) and one bounding box per kSegment = 128 sorted
+// candidates, over the segment's valid rows only (rows past lengths2 stay
+// last and widen no box; a segment without one has an empty box). Each warp
+// of the screen then works alone, with no block barrier: it tests the
+// segments 32 at a time (a lane a segment) against the box of its queries
+// and their largest seed, tests each that passes against every query, and
+// scans a segment from device memory (L1/L2: 1.6 MB at 100k points) only
+// if one of its queries needs it. A query needs a segment when lb < seed,
+// lb the squared distance (L1: distance) from the query to the box,
+// computed as `distance` computes a pair: per axis gap = max(lo - q,
+// q - hi, 0) by __fsub_rn, each gap squared by __fmul_rn, summed by
+// __fadd_rn in axis order. Every one of those steps rounds to nearest,
+// which is monotone, so lb is at most the `distance` of every member of the
+// box (and the bound from the queries' box, with ql and qh in place of q, at
+// most each query's lb), and a member is listed only when its distance is
+// below the seed (strict): a segment with lb >= seed holds nothing the list
+// would keep. The skip is exact with no margin: each list holds the same
+// keys and the same whole count as a full scan, so the select's outputs and
+// the flags are bit for bit those of the full scan. The sample pass and the
+// repair keep the unsorted cloud.
+//
 // Counting (COUNT; ports knn_pallas.py's instrument): per block, the groups
 // its warps scanned, the votes that fired, the drains that had work, the
 // insertions into the top-K, and the candidates that passed the screen into
@@ -111,6 +138,7 @@
 // d = 0..D-1 (__fsub_rn/__fmul_rn/__fadd_rn, never contracted to FMA), so
 // the distances are bit-equal to the plain PyTorch version.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -711,6 +739,32 @@ __device__ __forceinline__ float vote_distance(const float* q, const Cand<DIM>& 
   }
 }
 
+// The screen's segments: candidates a bounding box (csrc header, "The
+// screen's skip").
+constexpr int kSegment = 128;
+
+// One axis of the bound on a segment: the gap from [ql, qh] to [lo, hi],
+// squared at L2, with the rounding steps of axis_term.
+template <int NORM>
+__device__ __forceinline__ float gap_term(float ql, float qh, float lo, float hi) {
+  const float g = fmaxf(fmaxf(__fsub_rn(lo, qh), __fsub_rn(ql, hi)), 0.f);
+  return NORM == 2 ? __fmul_rn(g, g) : g;
+}
+
+// The bound on the D=3 `distance` from every point of the box [ql, qh] to
+// every candidate of the box [lo, hi] (for a query, ql = qh = q:
+// kernels/knn.py segment_bound): the gaps' terms summed in axis order. Each
+// step rounds to nearest, which is monotone, so a box of queries bounds
+// each of its queries' bounds from below. Never NaN: fmaxf returns 0 for a
+// NaN gap.
+template <int NORM>
+__device__ __forceinline__ float box_distance(const float* ql, const float* qh,
+                                              const float4& lo, const float4& hi) {
+  float d = gap_term<NORM>(ql[0], qh[0], lo.x, hi.x);
+  d = __fadd_rn(d, gap_term<NORM>(ql[1], qh[1], lo.y, hi.y));
+  return __fadd_rn(d, gap_term<NORM>(ql[2], qh[2], lo.z, hi.z));
+}
+
 // One thread's queries of the screen and the scan of one staged tile: no
 // top-K state, only each query's seed, list and count. A group of U = 16/Q
 // candidates computes its Q*U vote distances and one minimum a query against
@@ -719,8 +773,12 @@ __device__ __forceinline__ float vote_distance(const float* q, const Cand<DIM>& 
 // loop turn a candidate, computes `distance` again from the staged tile and
 // appends the candidate if that is below its seed (strict): the keys hold
 // the exact distances, and a lane pays for its own candidates, not for U
-// predicated ones a query. A list keeps at most cap keys; its count is kept
-// whole.
+// predicated ones a query. EXACT (the skip's segments, D = 3): candidates
+// in the screen's order lie close together, so a lane near a group has many
+// of them below its seed; the vote takes `distance` itself against the seed
+// and the U appends are unrolled and predicated, with no second load and no
+// loop a candidate (each candidate's original index rides in its fourth
+// float). A list keeps at most cap keys; its count is kept whole.
 template <int DIM, int NORM, int Q>
 struct Screen {
   static constexpr int U = kGroupSlots / Q;  // candidates a group
@@ -733,7 +791,12 @@ struct Screen {
   int cnt[Q];
   unsigned long long* list[Q];
   const int* ids;  // the cloud's candidates' original indices, or null
+  const float4* box;  // the cloud's segment boxes (lo, hi), or null: no skip
+  int* shared_cnt;    // the skip: the block's counts, query qq of lane l at 32 qq + l
+  unsigned long long* pend;  // the skip: this warp's pending keys, (Q, kPend, 32)
+  int npend[Q], head[Q];     // the skip: pending keys a query, the first one's slot
   int D, S, cap;
+  unsigned scanned, skipped;  // this warp's segments scanned and skipped
 
   __device__ __forceinline__ float dist(int qq, const Cand<DIM>& c) const {
     return distance<DIM, NORM>(DIM > 0 ? qv[qq] : qp[qq], c, D);
@@ -752,17 +815,14 @@ struct Screen {
     }
   }
 
-  // The key of candidate `pos` at distance d: distances are never negative
-  // or -0, so unsigned key order is (value, index) order.
-  __device__ __forceinline__ void append(int qq, float d, int pos) {
-    const unsigned j = ids != nullptr ? (unsigned)ids[pos] : (unsigned)pos;
-    if (cnt[qq] < cap) {
-      list[qq][cnt[qq]] = (unsigned long long)__float_as_uint(d) << 32 | j;
-    }
-    ++cnt[qq];
+  // The key of the candidate of original index j at distance d, at place
+  // `at` of the list: distances are never negative or -0, so unsigned key
+  // order is (value, index) order.
+  __device__ __forceinline__ void put(int qq, int at, float d, unsigned j) {
+    if (at < cap) list[qq][at] = (unsigned long long)__float_as_uint(d) << 32 | j;
   }
 
-  template <bool TAIL>
+  template <bool TAIL, bool EXACT>
   __device__ __forceinline__ void group(const Cand<DIM> (&c)[U], const float* cur,
                                         int t0, int g, int cnt_tile) {
     float dg[Q][U];
@@ -771,7 +831,7 @@ struct Screen {
     for (int u = 0; u < U; ++u) {
 #pragma unroll
       for (int qq = 0; qq < Q; ++qq) {
-        dg[qq][u] = vote_dist(qq, c[u]);
+        dg[qq][u] = EXACT ? dist(qq, c[u]) : vote_dist(qq, c[u]);
         lo[qq] = u == 0 ? dg[qq][0] : fminf(lo[qq], dg[qq][u]);
       }
     }
@@ -779,90 +839,231 @@ struct Screen {
     bool any = false;
 #pragma unroll
     for (int qq = 0; qq < Q; ++qq) {
-      hit[qq] = lo[qq] < wide[qq];
+      hit[qq] = lo[qq] < (EXACT ? seed[qq] : wide[qq]);
       any |= hit[qq];
     }
     if (!__any_sync(0xffffffffu, any)) return;
 #pragma unroll
     for (int qq = 0; qq < Q; ++qq) {
       if (!hit[qq]) continue;
-      unsigned near = 0;
+      if constexpr (EXACT && DIM == 3) {
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if ((!TAIL || g + u < cnt_tile) && dg[qq][u] < wide[qq]) near |= 1u << u;
-      }
-      while (near != 0) {
-        const int u = __ffs(near) - 1;
-        near &= near - 1;
-        const float d = dist(qq, load_cand<DIM>(cur + (g + u) * S));
-        if (d < seed[qq]) append(qq, d, t0 + g + u);
+        for (int u = 0; u < U; ++u) {
+          if ((!TAIL || g + u < cnt_tile) && dg[qq][u] < seed[qq]) {
+            pend_slot(qq, npend[qq]++) =
+                (unsigned long long)__float_as_uint(dg[qq][u]) << 32 |
+                __float_as_uint(c[u].v[3]);
+          }
+          if (u % 4 == 3 && npend[qq] >= 4) flush4(qq);  // at most 3 + 4 pending
+        }
+      } else {
+        unsigned near = 0;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if ((!TAIL || g + u < cnt_tile) && dg[qq][u] < wide[qq]) near |= 1u << u;
+        }
+        while (near != 0) {
+          const int u = __ffs(near) - 1;
+          near &= near - 1;
+          const float d = dist(qq, load_cand<DIM>(cur + (g + u) * S));
+          const int pos = t0 + g + u;
+          if (d < seed[qq]) {
+            put(qq, cnt[qq]++, d, ids != nullptr ? (unsigned)ids[pos] : pos);
+          }
+        }
       }
     }
   }
 
-  // D=3, Q >= 2: the next group is loaded while this one is computed, into
-  // two buffers taken in turn (no register copies); a load reads up to U
-  // candidates past the tile, into the padding that the launch adds behind
-  // the second tile, and never uses them.
-  __device__ __forceinline__ void scan_tile(const float* cur, int t0, int cnt_tile) {
-    int g = 0;
+  // The skip's appends: the block's warps share the queries, so a list's
+  // places come from the block's count (the list's order then varies from
+  // run to run; the select reads it as a set). A lane keeps its keys pending
+  // in shared memory and writes them 4 at a time, 32 aligned bytes (one
+  // sector) by two 16-byte stores: while the block scans, its counts grow
+  // by 4 only, so every such place is a multiple of 4, and the lists start
+  // at multiples of 256 keys (screen_cap; another cap takes single stores
+  // where the place is not 16-byte aligned). flush_rest writes the last 1-3
+  // keys a query once every warp of the block is done.
+  static constexpr int kPend = 8;
+  __device__ __forceinline__ unsigned long long& pend_slot(int qq, int k) {
+    return pend[(qq * kPend + ((head[qq] + k) & (kPend - 1))) * 32 + (threadIdx.x & 31)];
+  }
+  __device__ __forceinline__ void flush4(int qq) {
+    const int at = atomicAdd(shared_cnt + qq * 32 + (threadIdx.x & 31), 4);
+    const ulonglong2 a = make_ulonglong2(pend_slot(qq, 0), pend_slot(qq, 1));
+    const ulonglong2 b = make_ulonglong2(pend_slot(qq, 2), pend_slot(qq, 3));
+    if (at + 4 <= cap && (reinterpret_cast<uintptr_t>(list[qq] + at) & 15) == 0) {
+      reinterpret_cast<ulonglong2*>(list[qq] + at)[0] = a;
+      reinterpret_cast<ulonglong2*>(list[qq] + at)[1] = b;
+    } else {
+      if (at < cap) list[qq][at] = a.x;
+      if (at + 1 < cap) list[qq][at + 1] = a.y;
+      if (at + 2 < cap) list[qq][at + 2] = b.x;
+      if (at + 3 < cap) list[qq][at + 3] = b.y;
+    }
+    head[qq] = (head[qq] + 4) & (kPend - 1);
+    npend[qq] -= 4;
+  }
+  __device__ __forceinline__ void flush_rest() {
+#pragma unroll
+    for (int qq = 0; qq < Q; ++qq) {
+      const int at = atomicAdd(shared_cnt + qq * 32 + (threadIdx.x & 31), npend[qq]);
+      for (int k = 0; k < npend[qq]; ++k) {
+        if (at + k < cap) list[qq][at + k] = pend_slot(qq, k);
+      }
+      npend[qq] = 0;
+    }
+  }
+
+  // Positions [g, end) of cur (g a multiple of U): a staged tile's, or a
+  // segment's of the screen's order. D=3, Q >= 2: the next group is loaded
+  // while this one is computed, into two buffers taken in turn (no register
+  // copies); a load reads up to U candidates past end, into the rest of the
+  // tile or segments, the padding that the launch adds behind the second
+  // tile or the rows that screen_order_cuda adds behind the last cloud, and
+  // never uses them.
+  template <bool EXACT>
+  __device__ __forceinline__ void scan_range(const float* cur, int t0, int g, int end) {
     if constexpr (DIM == 3 && Q >= 2) {
       Cand<DIM> a[U], b[U];
-      if (U <= cnt_tile) load_group<false>(a, cur, 0, cnt_tile);
-      for (; g + 2 * U <= cnt_tile; g += 2 * U) {
-        load_group<false>(b, cur, g + U, cnt_tile);
-        group<false>(a, cur, t0, g, cnt_tile);
-        load_group<false>(a, cur, g + 2 * U, cnt_tile);
-        group<false>(b, cur, t0, g + U, cnt_tile);
+      if (g + U <= end) load_group<false>(a, cur, g, end);
+      for (; g + 2 * U <= end; g += 2 * U) {
+        load_group<false>(b, cur, g + U, end);
+        group<false, EXACT>(a, cur, t0, g, end);
+        load_group<false>(a, cur, g + 2 * U, end);
+        group<false, EXACT>(b, cur, t0, g + U, end);
       }
-      if (g + U <= cnt_tile) {
-        group<false>(a, cur, t0, g, cnt_tile);
+      if (g + U <= end) {
+        group<false, EXACT>(a, cur, t0, g, end);
         g += U;
       }
     } else {
-      for (; g + U <= cnt_tile; g += U) {
+      for (; g + U <= end; g += U) {
         Cand<DIM> c[U];
-        load_group<false>(c, cur, g, cnt_tile);
-        group<false>(c, cur, t0, g, cnt_tile);
+        load_group<false>(c, cur, g, end);
+        group<false, EXACT>(c, cur, t0, g, end);
       }
     }
-    if (g < cnt_tile) {
+    if (g < end) {
       Cand<DIM> c[U];
-      load_group<true>(c, cur, g, cnt_tile);
-      group<true>(c, cur, t0, g, cnt_tile);
+      load_group<true>(c, cur, g, end);
+      group<true, EXACT>(c, cur, t0, g, end);
+    }
+  }
+
+  // The skip (D = 3), over the first len2 candidates of the cloud in the
+  // screen's order (pts: x, y, z and the original index's bits, read where
+  // they lie); every warp of the block holds the same queries. 32 segments
+  // at a time, each lane tests one against the box of the queries with a
+  // seed and their largest seed (every warp the same); the segments that
+  // pass are dealt round the warps, and each warp tests its own against
+  // every query's bound and seed and scans it if one of them needs it. No
+  // block barrier: a warp waits for no other.
+  __device__ __forceinline__ void scan_segments(const float* pts, int len2) {
+    if constexpr (DIM == 3) {
+      const int lane = threadIdx.x & 31;
+      const int warp = threadIdx.x >> 5;
+      const int warps = blockDim.x >> 5;
+      float ql[3] = {INFINITY, INFINITY, INFINITY};
+      float qh[3] = {-INFINITY, -INFINITY, -INFINITY};
+      float top = -INFINITY;
+#pragma unroll
+      for (int qq = 0; qq < Q; ++qq) {
+        if (seed[qq] > -INFINITY) {
+          for (int a = 0; a < 3; ++a) {
+            ql[a] = fminf(ql[a], qv[qq][a]);
+            qh[a] = fmaxf(qh[a], qv[qq][a]);
+          }
+          top = fmaxf(top, seed[qq]);
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        for (int a = 0; a < 3; ++a) {
+          ql[a] = fminf(ql[a], __shfl_xor_sync(0xffffffffu, ql[a], o));
+          qh[a] = fmaxf(qh[a], __shfl_xor_sync(0xffffffffu, qh[a], o));
+        }
+        top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, o));
+      }
+      const int nseg = (len2 + kSegment - 1) / kSegment;
+      int turn = 0;  // the warp whose turn the next segment that passes is
+      for (int s0 = 0; s0 < nseg; s0 += 32) {
+        bool near = false;
+        if (s0 + lane < nseg) {
+          const float4 lo = __ldg(box + 2 * (s0 + lane));
+          const float4 hi = __ldg(box + 2 * (s0 + lane) + 1);
+          near = box_distance<NORM>(ql, qh, lo, hi) < top;
+        }
+        unsigned segs = __ballot_sync(0xffffffffu, near);
+        if (warp == 0) skipped += min(32, nseg - s0) - __popc(segs);
+        for (; segs != 0; segs &= segs - 1) {
+          const bool mine = turn == warp;
+          turn = turn + 1 == warps ? 0 : turn + 1;
+          if (!mine) continue;
+          const int s = s0 + __ffs(segs) - 1;
+          const float4 lo = __ldg(box + 2 * s);
+          const float4 hi = __ldg(box + 2 * s + 1);
+          bool need = false;
+#pragma unroll
+          for (int qq = 0; qq < Q; ++qq) {
+            need |= box_distance<NORM>(qv[qq], qv[qq], lo, hi) < seed[qq];
+          }
+          if (!__any_sync(0xffffffffu, need)) {
+            ++skipped;
+            continue;
+          }
+          ++scanned;
+          scan_range<true>(pts, 0, s * kSegment, min((s + 1) * kSegment, len2));
+        }
+      }
     }
   }
 };
 
 // The screen over queries [q0, q0 + nq) of every cloud (kernel order): thread
 // t of block b owns chunk queries b * Q * blockDim.x + qq * blockDim.x + t.
-// Each candidate at a distance below its query's seed (strict) is appended to
-// the query's list, lists + (n * nq + query) * cap, as one key; counts (N, nq)
-// gets each query's whole count. A block none of whose queries has a finite
-// seed scans nothing (the select flags them). Shared memory: two tiles of
-// (tile, S) floats and U candidates of padding.
+// Each candidate at a distance below its query's seed (strict) is appended
+// to the query's list, lists + (n * nq + query) * cap, as one key; counts
+// (N, nq) gets each query's whole count. A block none of whose queries has a
+// finite seed scans nothing (the select flags them). boxes (N, ceil(P2 /
+// kSegment), 8) or null: p2 is the screen's order (N, P2, 4), cand_ids is
+// unused, lane l of every warp of block b holds the chunk queries
+// b * 32 * Q + 32 * qq + l (consecutive in the queries' order, so the skip
+// tests are coherent), and each warp scans, from device memory, its share of
+// the segments one of them needs (csrc header, "The screen's skip");
+// seg_counts (N, blocks, 2) or null: each block adds the segments it scanned
+// and skipped. Shared memory: two tiles of (tile, S) floats and U candidates
+// of padding; with boxes, each warp's pending keys (Q, 8, 32).
 template <int DIM, int NORM, int Q>
 __global__ void __launch_bounds__(kMaxThreads, 2) knn_screen_kernel(
     const float* __restrict__ p1, const float* __restrict__ p2,
     const int64_t* __restrict__ lengths2, const int* __restrict__ rows,
-    const int* __restrict__ cand_ids, const float* __restrict__ seeds, int P1,
-    int P2, int D, int q0, int nq, int cap, int tile,
-    unsigned long long* __restrict__ lists, int* __restrict__ counts) {
+    const int* __restrict__ cand_ids, const float* __restrict__ seeds,
+    const float* __restrict__ boxes, int P1, int P2, int D, int q0, int nq,
+    int cap, int tile, unsigned long long* __restrict__ lists,
+    int* __restrict__ counts, unsigned long long* __restrict__ seg_counts) {
   extern __shared__ float4 smem_f4[];
   float* const stage = reinterpret_cast<float*>(smem_f4);
   const int S = stride_of(DIM, D);
   const int n = blockIdx.y;
-  const int first = blockIdx.x * Q * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool skip = DIM == 3 && boxes != nullptr;
+  const int first =
+      skip ? blockIdx.x * 32 * Q + lane : blockIdx.x * Q * blockDim.x + threadIdx.x;
+  const int step = skip ? 32 : blockDim.x;  // from a thread's query qq to qq + 1
 
   Screen<DIM, NORM, Q> st;
   st.D = D;
   st.S = S;
   st.cap = cap;
   st.ids = cand_ids != nullptr ? cand_ids + (int64_t)n * P2 : nullptr;
+  st.box = skip ? reinterpret_cast<const float4*>(boxes) +
+                      (int64_t)n * ((P2 + kSegment - 1) / kSegment) * 2
+                : nullptr;
+  st.scanned = st.skipped = 0;
   int seeded = 0;
 #pragma unroll
   for (int qq = 0; qq < Q; ++qq) {
-    const int lq = first + qq * blockDim.x;
+    const int lq = first + qq * step;
     const bool active = lq < nq;
     const int64_t row = (int64_t)n * P1 + q0 + (active ? lq : 0);
     const int64_t src = rows != nullptr ? (int64_t)n * P1 + rows[row] : row;
@@ -882,26 +1083,53 @@ __global__ void __launch_bounds__(kMaxThreads, 2) knn_screen_kernel(
   const int64_t len64 = lengths2[n];
   const int len2 = (int)(len64 < 0 ? 0 : (len64 > P2 ? P2 : len64));
   const float* p2n = p2 + (int64_t)n * P2 * D;
-  const int tiles = __syncthreads_or(seeded) ? (len2 + tile - 1) / tile : 0;
-  if (tiles > 0) {
-    stage_tile<DIM, false>(stage, p2n, nullptr, min(tile, len2), D, S);
-  }
-  for (int t = 0; t < tiles; ++t) {
-    cp_async_wait_all();
-    __syncthreads();  // tile t is staged; no thread still reads t-1's
-    const int t0 = t * tile;
-    if (t + 1 < tiles) {
-      stage_tile<DIM, false>(stage + ((t + 1) & 1) * tile * S,
-                             p2n + (int64_t)(t0 + tile) * D, nullptr,
-                             min(tile, len2 - t0 - tile), D, S);
+  if (skip) {
+    __shared__ int shared_cnt[32 * Q];
+    for (int e = threadIdx.x; e < 32 * Q; e += blockDim.x) shared_cnt[e] = 0;
+    __syncthreads();
+    st.shared_cnt = shared_cnt;
+    st.pend = reinterpret_cast<unsigned long long*>(smem_f4) +
+              (threadIdx.x >> 5) * Q * Screen<DIM, NORM, Q>::kPend * 32;
+#pragma unroll
+    for (int qq = 0; qq < Q; ++qq) st.npend[qq] = st.head[qq] = 0;
+    st.scan_segments(p2 + (int64_t)n * P2 * 4, len2);
+    __syncthreads();  // every warp's 4-key writes are placed
+    st.flush_rest();
+    __syncthreads();  // every append is counted
+    if (threadIdx.x < 32) {
+#pragma unroll
+      for (int qq = 0; qq < Q; ++qq) st.cnt[qq] = shared_cnt[qq * 32 + lane];
     }
-    st.scan_tile(stage + (t & 1) * tile * S, t0, min(tile, len2 - t0));
+  } else {
+    const int tiles = __syncthreads_or(seeded) ? (len2 + tile - 1) / tile : 0;
+    if (tiles > 0) {
+      stage_tile<DIM, false>(stage, p2n, nullptr, min(tile, len2), D, S);
+    }
+    for (int t = 0; t < tiles; ++t) {
+      cp_async_wait_all();
+      __syncthreads();  // tile t is staged; no thread still reads t-1's
+      const int t0 = t * tile;
+      if (t + 1 < tiles) {
+        stage_tile<DIM, false>(stage + ((t + 1) & 1) * tile * S,
+                               p2n + (int64_t)(t0 + tile) * D, nullptr,
+                               min(tile, len2 - t0 - tile), D, S);
+      }
+      st.template scan_range<false>(stage + (t & 1) * tile * S, t0, 0,
+                                    min(tile, len2 - t0));
+    }
   }
 
+  if (!skip || threadIdx.x < 32) {
 #pragma unroll
-  for (int qq = 0; qq < Q; ++qq) {
-    const int lq = first + qq * blockDim.x;
-    if (lq < nq) counts[(int64_t)n * nq + lq] = st.cnt[qq];
+    for (int qq = 0; qq < Q; ++qq) {
+      const int lq = first + qq * step;
+      if (lq < nq) counts[(int64_t)n * nq + lq] = st.cnt[qq];
+    }
+  }
+  if (seg_counts != nullptr && lane == 0) {
+    unsigned long long* c = seg_counts + ((int64_t)n * gridDim.x + blockIdx.x) * 2;
+    atomicAdd(c, (unsigned long long)st.scanned);
+    atomicAdd(c + 1, (unsigned long long)st.skipped);
   }
 }
 
@@ -1046,17 +1274,23 @@ struct ScreenArgs {
   const int* rows;
   const int* cand_ids;
   const float* seeds;
+  const float* boxes;
   int N, P1, P2, D, q0, nq, cap;
   unsigned long long* lists;
   int* counts;
+  unsigned long long* seg_counts;
 };
 
 template <int DIM, int NORM, int Q>
 cudaError_t run_screen(const ScreenArgs& a, int threads, int tile,
                        cudaStream_t stream, int* resident) {
   auto kernel = knn_screen_kernel<DIM, NORM, Q>;
-  const size_t smem = (2 * (size_t)tile + Screen<DIM, NORM, Q>::U) *
-                      stride_of(DIM, a.D) * sizeof(float);
+  // The skip stages no tile: its shared memory holds the pending keys.
+  const size_t smem =
+      a.boxes != nullptr
+          ? (size_t)threads * Q * Screen<DIM, NORM, Q>::kPend * sizeof(unsigned long long)
+          : (2 * (size_t)tile + Screen<DIM, NORM, Q>::U) * stride_of(DIM, a.D) *
+                sizeof(float);
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1066,11 +1300,12 @@ cudaError_t run_screen(const ScreenArgs& a, int threads, int tile,
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, kernel,
                                                          threads, smem);
   }
-  const dim3 grid((a.nq + Q * threads - 1) / (Q * threads), a.N);
+  const int per_block = a.boxes != nullptr ? 32 * Q : Q * threads;  // queries
+  const dim3 grid((a.nq + per_block - 1) / per_block, a.N);
   kernel<<<grid, threads, smem, stream>>>(a.p1, a.p2, a.lengths2, a.rows,
-                                          a.cand_ids, a.seeds, a.P1, a.P2, a.D,
-                                          a.q0, a.nq, a.cap, tile, a.lists,
-                                          a.counts);
+                                          a.cand_ids, a.seeds, a.boxes, a.P1, a.P2,
+                                          a.D, a.q0, a.nq, a.cap, tile, a.lists,
+                                          a.counts, a.seg_counts);
   return cudaGetLastError();
 }
 
@@ -1101,9 +1336,248 @@ cudaError_t screen_dispatch(const ScreenArgs& a, int norm, int q, int threads,
       threads > kMaxThreads || threads % 32 != 0) {
     return cudaErrorInvalidValue;
   }
+  if (a.boxes != nullptr && a.D != 3) return cudaErrorInvalidValue;  // the skip: D = 3
   if (norm == 2) return screen_dim<2>(a, q, threads, tile, stream, resident);
   if (norm == 1) return screen_dim<1>(a, q, threads, tile, stream, resident);
   return cudaErrorInvalidValue;
+}
+
+// ---- The screen's candidate order (D = 3) ----
+
+// A cluster of kOrderBlocks blocks sorts one cloud: kOrderThreads threads a
+// block, kRadix bits a radix pass.
+constexpr int kOrderBlocks = 8;
+constexpr int kOrderThreads = 512;
+constexpr int kOrderWarps = kOrderThreads / 32;
+constexpr int kRadix = 8;
+constexpr int kDigits = 1 << kRadix;
+
+// A point's cell code on a grid of 2^bits cells a side over the box
+// (lo, hi): per axis the cell floor((p - lo) / (hi - lo) * 2^bits), clamped
+// to the grid (0 where the box has no extent or the ratio is NaN), its bits
+// interleaved x, y, z from the lowest (kernels/knn.py screen_order_plain).
+__device__ __forceinline__ unsigned cell_code(const float* p, const float* lo,
+                                              const float* hi, int bits) {
+  const float side = (float)(1 << bits);
+  unsigned code = 0;
+  for (int a = 0; a < 3; ++a) {
+    const float ext = __fsub_rn(hi[a], lo[a]);
+    const float frac = ext > 0.f ? __fdiv_rn(__fsub_rn(p[a], lo[a]), ext) : 0.f;
+    const unsigned c =
+        (unsigned)fminf(fmaxf(__fmul_rn(frac, side), 0.f), __fsub_rn(side, 1.f));
+    for (int b = 0; b < bits; ++b) code |= ((c >> b) & 1u) << (3 * b + a);
+  }
+  return code;
+}
+
+// The screen's order of one cloud (a cluster a cloud, blockIdx.y = n): its
+// valid rows sorted by cell code on the box of the valid rows, ties in row
+// order (a stable LSD radix sort of the keys code << 32 | row, kRadix bits a
+// pass; each block takes a contiguous share of the rows, each warp of that,
+// and a pass ranks a warp's rows 32 at a time by __match_any_sync, so the
+// places follow (digit, block, warp, row)); rows past lengths2 stay where
+// they are, after them. Writes out_p (N, P2, 4) the points in that order,
+// each as x, y, z and the bits of its original index (ids[n, row] where
+// given; the screen reads a candidate and its index as one float4), and
+// boxes (N, ceil(P2 / kSegment), 8): each segment's lo (3), 0, hi (3), 0
+// over its valid rows (+inf / -inf where it has none; NaN coordinates
+// ignored). keys (2, N, P2): scratch. Blocks exchange counts through
+// distributed shared memory and keys through global memory, read after a
+// cluster barrier with __ldcg (L2, never a stale L1 line).
+__global__ void __cluster_dims__(kOrderBlocks, 1, 1) __launch_bounds__(kOrderThreads)
+    knn_screen_order_kernel(const float* __restrict__ p2,
+                            const int64_t* __restrict__ lengths2,
+                            const int* __restrict__ ids, int P2, int bits,
+                            unsigned long long* __restrict__ keys,
+                            float* __restrict__ out_p, float* __restrict__ boxes) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n = blockIdx.y;
+  const int64_t len64 = lengths2[n];
+  const int len2 = (int)(len64 < 0 ? 0 : (len64 > P2 ? P2 : len64));
+  const int64_t base = (int64_t)n * P2;
+  const float* pn = p2 + base * 3;
+  const int per_block = (len2 + kOrderBlocks - 1) / kOrderBlocks;
+  const int b0 = min(rank * per_block, len2), b1 = min(b0 + per_block, len2);
+  const int per_warp = (b1 - b0 + kOrderWarps - 1) / kOrderWarps;
+  const int w0 = min(b0 + warp * per_warp, b1), w1 = min(w0 + per_warp, b1);
+
+  __shared__ float block_box[6];  // this block's lo, hi: read by the cluster
+  __shared__ float warp_box[kOrderWarps][6];
+  __shared__ float cloud_box[6];
+  __shared__ int places[kDigits * kOrderWarps];  // [digit][warp]
+  __shared__ int totals[kDigits];  // this block's rows a digit: read by the cluster
+  __shared__ int starts[kDigits];
+
+  // The box of the valid rows: each block its share, then the cluster's.
+  float lo[3] = {INFINITY, INFINITY, INFINITY};
+  float hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+  for (int i = b0 + threadIdx.x; i < b1; i += kOrderThreads) {
+    for (int a = 0; a < 3; ++a) {
+      const float v = pn[(int64_t)i * 3 + a];
+      lo[a] = fminf(lo[a], v);
+      hi[a] = fmaxf(hi[a], v);
+    }
+  }
+  for (int a = 0; a < 3; ++a) {
+    for (int o = 16; o > 0; o >>= 1) {
+      lo[a] = fminf(lo[a], __shfl_xor_sync(0xffffffffu, lo[a], o));
+      hi[a] = fmaxf(hi[a], __shfl_xor_sync(0xffffffffu, hi[a], o));
+    }
+    if (lane == 0) {
+      warp_box[warp][a] = lo[a];
+      warp_box[warp][3 + a] = hi[a];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 6) {
+    const int a = threadIdx.x;
+    float v = warp_box[0][a];
+    for (int w = 1; w < kOrderWarps; ++w) {
+      v = a < 3 ? fminf(v, warp_box[w][a]) : fmaxf(v, warp_box[w][a]);
+    }
+    block_box[a] = v;
+  }
+  cluster.sync();
+  if (threadIdx.x < 6) {
+    const int a = threadIdx.x;
+    float v = a < 3 ? INFINITY : -INFINITY;
+    for (int r = 0; r < kOrderBlocks; ++r) {
+      const float b = *cluster.map_shared_rank(&block_box[a], r);
+      v = a < 3 ? fminf(v, b) : fmaxf(v, b);
+    }
+    cloud_box[a] = v;
+  }
+  __syncthreads();
+  float L[3], H[3];
+  for (int a = 0; a < 3; ++a) {
+    L[a] = cloud_box[a];
+    H[a] = cloud_box[3 + a];
+  }
+
+  const int passes = (3 * bits + kRadix - 1) / kRadix;
+  const int64_t stride = (int64_t)gridDim.y * P2;
+  for (int pass = 0; pass < passes; ++pass) {
+    const unsigned long long* src = keys + ((pass + 1) & 1) * stride + base;
+    unsigned long long* dst = keys + (pass & 1) * stride + base;
+    const int shift = 32 + kRadix * pass;
+    const auto key_of = [&](int i) -> unsigned long long {
+      if (pass == 0) {
+        return (unsigned long long)cell_code(pn + (int64_t)i * 3, L, H, bits) << 32 |
+               (unsigned)i;
+      }
+      return __ldcg(src + i);
+    };
+    // This warp's rows a digit.
+    for (int e = threadIdx.x; e < kDigits * kOrderWarps; e += kOrderThreads) {
+      places[e] = 0;
+    }
+    __syncthreads();
+    for (int i0 = w0; i0 < w1; i0 += 32) {
+      const int i = i0 + lane;
+      const int digit = i < w1 ? (int)(key_of(i) >> shift) & (kDigits - 1) : kDigits;
+      const unsigned peers = __match_any_sync(0xffffffffu, digit);
+      if (digit < kDigits && lane == __ffs(peers) - 1) {
+        places[digit * kOrderWarps + warp] += __popc(peers);
+      }
+    }
+    __syncthreads();
+    int before = 0;  // thread d: rows of digit d in lower-ranked blocks
+    if (threadIdx.x < kDigits) {
+      int t = 0;
+      for (int w = 0; w < kOrderWarps; ++w) t += places[threadIdx.x * kOrderWarps + w];
+      totals[threadIdx.x] = t;
+    }
+    cluster.sync();  // every block's totals are published
+    if (threadIdx.x < kDigits) {
+      int all = 0;
+      for (int r = 0; r < kOrderBlocks; ++r) {
+        const int v = *cluster.map_shared_rank(&totals[threadIdx.x], r);
+        all += v;
+        before += r < rank ? v : 0;
+      }
+      starts[threadIdx.x] = all;
+    }
+    __syncthreads();
+    if (warp == 0) {  // starts[d] = the cloud's rows of a lower digit
+      constexpr int kPer = kDigits / 32;
+      int s[kPer], sum = 0;
+      for (int k = 0; k < kPer; ++k) {
+        s[k] = sum;
+        sum += starts[lane * kPer + k];
+      }
+      int incl = sum;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      for (int k = 0; k < kPer; ++k) starts[lane * kPer + k] = s[k] + incl - sum;
+    }
+    __syncthreads();
+    if (threadIdx.x < kDigits) {  // each warp's first place a digit
+      int run = starts[threadIdx.x] + before;
+      for (int w = 0; w < kOrderWarps; ++w) {
+        const int c = places[threadIdx.x * kOrderWarps + w];
+        places[threadIdx.x * kOrderWarps + w] = run;
+        run += c;
+      }
+    }
+    __syncthreads();
+    for (int i0 = w0; i0 < w1; i0 += 32) {
+      const int i = i0 + lane;
+      const unsigned long long key = i < w1 ? key_of(i) : 0ull;
+      const int digit = i < w1 ? (int)(key >> shift) & (kDigits - 1) : kDigits;
+      const unsigned peers = __match_any_sync(0xffffffffu, digit);
+      int* const place = &places[(digit < kDigits ? digit : 0) * kOrderWarps + warp];
+      const int at = *place + __popc(peers & ((1u << lane) - 1u));
+      __syncwarp();
+      if (digit < kDigits && lane == __ffs(peers) - 1) *place += __popc(peers);
+      __syncwarp();
+      if (digit < kDigits) dst[at] = key;
+    }
+    cluster.sync();  // the pass's keys are written; no block reads totals still
+  }
+
+  // A warp a segment: the points and indices in order, and the box.
+  const unsigned long long* sorted = keys + ((passes - 1) & 1) * stride + base;
+  const int nseg = (P2 + kSegment - 1) / kSegment;
+  for (int s = rank * kOrderWarps + warp; s < nseg; s += kOrderBlocks * kOrderWarps) {
+    float slo[3] = {INFINITY, INFINITY, INFINITY};
+    float shi[3] = {-INFINITY, -INFINITY, -INFINITY};
+    for (int j = 0; j < kSegment; j += 32) {
+      const int k = s * kSegment + j + lane;
+      if (k >= P2) break;
+      const int i = k < len2 ? (int)(unsigned)__ldcg(sorted + k) : k;
+      float v[3];
+      for (int a = 0; a < 3; ++a) {
+        v[a] = pn[(int64_t)i * 3 + a];
+        if (k < len2) {
+          slo[a] = fminf(slo[a], v[a]);
+          shi[a] = fmaxf(shi[a], v[a]);
+        }
+      }
+      const int orig = ids != nullptr ? ids[base + i] : i;
+      reinterpret_cast<float4*>(out_p)[base + k] =
+          make_float4(v[0], v[1], v[2], __int_as_float(orig));
+    }
+    for (int a = 0; a < 3; ++a) {
+      for (int o = 16; o > 0; o >>= 1) {
+        slo[a] = fminf(slo[a], __shfl_xor_sync(0xffffffffu, slo[a], o));
+        shi[a] = fmaxf(shi[a], __shfl_xor_sync(0xffffffffu, shi[a], o));
+      }
+    }
+    if (lane == 0) {
+      float* b = boxes + ((int64_t)n * nseg + s) * 8;
+      for (int a = 0; a < 3; ++a) {
+        b[a] = slo[a];
+        b[4 + a] = shi[a];
+      }
+      b[3] = b[7] = 0.f;
+    }
+  }
 }
 
 }  // namespace
@@ -1154,17 +1628,24 @@ extern "C" int knn_resident_blocks(int K, int D, int norm, int q, int threads,
 // The screen over queries [q0, q0 + nq) of every cloud, in the kernel's query
 // order (rows, as for knn_topk, or null): seeds (N, P1) float32 in that
 // order; cand_ids (N, P2) int32 original indices (p2 reordered) or null;
-// lists (N, nq, cap) uint64 and counts (N, nq) int32 written. q queries a
-// thread (1 or 2; 1 at D > 8), threads a block (a multiple of 32, at most
-// 256), tile candidates a staged tile. Returns the launch's cudaError_t.
+// boxes (N, ceil(P2 / 128), 8) float32, the segment boxes of knn_screen_order
+// (D = 3; p2 is then its (N, P2, 4) points and cand_ids is unused), or null:
+// every candidate is scanned; lists (N, nq, cap) uint64 and counts (N, nq)
+// int32 written; seg_counts (N, blocks, 2) uint64 zeroed, or null: the
+// segments each block scanned and skipped are added. q queries a thread (1
+// or 2; 1 at D > 8), threads a block (a multiple of 32, at most 256), tile
+// candidates a staged tile; blocks = ceil(nq / (q * threads)), with boxes
+// ceil(nq / (32 * q)) (the block's warps share 32 * q queries). Returns the
+// launch's cudaError_t.
 extern "C" int knn_screen(const float* p1, const float* p2, const int64_t* lengths2,
                           const int* rows, const int* cand_ids, const float* seeds,
-                          int N, int P1, int P2, int D, int q0, int nq, int cap,
-                          int norm, int q, int threads, int tile,
-                          unsigned long long* lists, int* counts, void* stream) {
+                          const float* boxes, int N, int P1, int P2, int D, int q0,
+                          int nq, int cap, int norm, int q, int threads, int tile,
+                          unsigned long long* lists, int* counts,
+                          unsigned long long* seg_counts, void* stream) {
   if (N <= 0 || nq <= 0) return cudaSuccess;
-  const ScreenArgs a{p1, p2, lengths2, rows, cand_ids, seeds, N, P1, P2, D,
-                     q0, nq, cap, lists, counts};
+  const ScreenArgs a{p1, p2, lengths2, rows, cand_ids, seeds, boxes, N, P1, P2, D,
+                     q0, nq, cap, lists, counts, seg_counts};
   return screen_dispatch(a, norm, q, threads, tile,
                          static_cast<cudaStream_t>(stream), nullptr);
 }
@@ -1174,8 +1655,8 @@ extern "C" int knn_screen(const float* p1, const float* p2, const int64_t* lengt
 extern "C" int knn_screen_resident(int D, int norm, int q, int threads, int tile,
                                    int* blocks) {
   *blocks = 0;
-  const ScreenArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                     1, 1, 1, D, 0, 1, 1, nullptr, nullptr};
+  const ScreenArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     1, 1, 1, D, 0, 1, 1, nullptr, nullptr, nullptr};
   return screen_dispatch(a, norm, q, threads, tile, nullptr, blocks);
 }
 
@@ -1201,5 +1682,22 @@ extern "C" int knn_select(const unsigned long long* lists, const int* counts,
                       static_cast<cudaStream_t>(stream)>>>(
       lists, counts, lengths2, seeds, P1, P2, q0, nq, cap, K, sort_n, out_d, out_i,
       flags);
+  return cudaGetLastError();
+}
+
+// The screen's order of p2 (N, P2, 3) float32 (lengths2 (N,) int64; ids
+// (N, P2) int32 original indices of p2's rows, or null): out_p (N, P2, 4)
+// (x, y, z, the index's bits) and boxes (N, ceil(P2 / 128), 8) float32 written
+// (knn_screen_order_kernel); keys (2, N, P2) uint64 scratch; bits the cell
+// code's bits an axis (1 to 10). One launch of N clusters of 8 blocks.
+// Returns the launch's cudaError_t.
+extern "C" int knn_screen_order(const float* p2, const int64_t* lengths2, const int* ids,
+                                int N, int P2, int bits, unsigned long long* keys,
+                                float* out_p, float* boxes, void* stream) {
+  if (N <= 0 || P2 <= 0) return cudaSuccess;
+  if (N > 65535 || bits < 1 || bits > 10) return cudaErrorInvalidValue;
+  knn_screen_order_kernel<<<dim3(kOrderBlocks, N), kOrderThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      p2, lengths2, ids, P2, bits, keys, out_p, boxes);
   return cudaGetLastError();
 }

@@ -54,6 +54,21 @@ the rounds' outputs (``_screener``; ``_plain_screener`` on the CPU). A
 query whose list may lack one of its K nearest (fewer entries than min(K,
 lengths2), more than the list holds, no finite seed) is flagged, and the
 chained rounds rerun unseeded for the flagged queries (``_screened``).
+
+The screen's skip (D = 3): a query lists about 0.5 % of a 100k-point cloud,
+so the screen of a D=3 call runs on its own order of the candidates
+(``screen_order_cuda``, one launch a call; ``screen_order_plain``): sorted
+by a coarse Morton cell code, with their original indices and one bounding
+box per ``_SEGMENT`` = 128 of them over their valid rows. The warps of a
+block share 32 or 64 queries, consecutive in the queries' Morton order,
+and scan only the segments one of them may need: those whose bound
+(``segment_bound``: the gap to the box per axis, squared, summed with the
+rounding steps of the distance) is below the query's seed. Rounding to
+nearest is monotone, so the bound is at most the distance of every point in
+the box, and a candidate is listed only below the seed: a skipped segment
+holds nothing a list would keep. So every list holds the keys and the count
+of a full scan, and the outputs and flags are the same bit for bit. The
+sample pass and the repair keep the unsorted cloud.
 """
 
 from __future__ import annotations
@@ -124,6 +139,10 @@ _LIST_STEP = 256
 _OVERFLOW_P = 1e-12
 _LIST_BYTES = 2 * 1024**3
 _SELECT_MAX_K = 4096
+
+# The screen's skip (D = 3): candidates a segment, each with one bounding
+# box (csrc/knn.cu kSegment).
+_SEGMENT = 128
 
 # K buckets of one round in which the auto gate (None) seeds single-round
 # calls: none, as in the JAX package (tune_knn.py on an H100 80GB HBM3 at
@@ -395,13 +414,15 @@ def _lib():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.knn_resident_blocks.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.knn_screen.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [
-        ctypes.c_void_p] * 3
+    lib.knn_screen.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [
+        ctypes.c_void_p] * 4
     lib.knn_screen_resident.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.knn_select.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p] * 4
+    lib.knn_screen_order.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 4
     for fn in (lib.knn_topk, lib.knn_resident_blocks, lib.knn_screen,
-               lib.knn_screen_resident, lib.knn_select):
+               lib.knn_screen_resident, lib.knn_select, lib.knn_screen_order):
         fn.restype = ctypes.c_int
     return lib
 
@@ -844,9 +865,14 @@ def _screener(p1, p2, lengths2, norm, rows=None, cand_ids=None, plan=None,
     """``screen(K, seed, cap, out)`` for ``_screened`` on CUDA tensors: the
     screen and select kernels of ``csrc/knn.cu`` over chunks of queries
     (``_screen_chunk``), under ``plan`` (default: ``_screen_card_plan``).
-    ``rows`` and ``cand_ids`` (int32): as for ``_launcher``. ``stats``: a
-    list to which each call appends {"cap", "counts", "flags"} (the lists'
-    whole lengths (N, P1) and the flags, kernel order); it costs copies."""
+    ``rows`` and ``cand_ids`` (int32): as for ``_launcher``. Where
+    ``_screen_skips``, the screen runs on ``screen_order_cuda``'s order of
+    p2, built once a call, and skips the segments no query needs.
+    ``stats``: a list to which each call appends {"cap", "counts", "flags",
+    "scanned"} (the lists' whole lengths (N, P1) and the flags, kernel
+    order; the share of (32 q queries, segment) pairs the screen scanned, a
+    0-dim device tensor, None without the skip); it costs copies and a
+    zeroed counter."""
     N, P1, D = p1.shape
     P2 = p2.shape[1]
     dev = p1.device
@@ -859,17 +885,22 @@ def _screener(p1, p2, lengths2, norm, rows=None, cand_ids=None, plan=None,
         stream = _build.stream_ptr(dev)
         chunk = _screen_chunk(N, P1, cap)
         q, threads, tile = plan or _screen_card_plan(dev.index, N, chunk, P2, D, norm)
+        cands, ids, boxes = p2, cand_ids, None
+        if _screen_skips(D):
+            (cands, boxes), ids = screen_order_cuda(p2, lengths2, cand_ids), None
         flags = torch.empty((N, P1), dtype=torch.int32, device=dev)
         lists = torch.empty((N, chunk, cap), dtype=torch.int64, device=dev)
         counts = torch.empty((N, chunk), dtype=torch.int32, device=dev)
+        segs = (torch.zeros((N, -(-chunk // (32 * q)), 2), dtype=torch.int64, device=dev)
+                if stats is not None and boxes is not None else None)
         seen = []
         for q0 in range(0, P1, chunk):
             nq = min(chunk, P1 - q0)
             _build.check(
-                lib.knn_screen(p1.data_ptr(), p2.data_ptr(), lengths2.data_ptr(),
-                               ptr(rows), ptr(cand_ids), seed.data_ptr(), N, P1, P2, D,
-                               q0, nq, cap, norm, q, threads, tile, lists.data_ptr(),
-                               counts.data_ptr(), stream),
+                lib.knn_screen(p1.data_ptr(), cands.data_ptr(), lengths2.data_ptr(),
+                               ptr(rows), ptr(ids), seed.data_ptr(), ptr(boxes), N, P1,
+                               P2, D, q0, nq, cap, norm, q, threads, tile,
+                               lists.data_ptr(), counts.data_ptr(), ptr(segs), stream),
                 "knn_screen",
             )
             tracing.launch("knn_screen_cuda")
@@ -884,8 +915,9 @@ def _screener(p1, p2, lengths2, norm, rows=None, cand_ids=None, plan=None,
             if stats is not None:
                 seen.append(counts.view(-1)[:N * nq].view(N, nq).clone())
         if stats is not None:
+            scanned = None if segs is None else segs[..., 0].sum() / segs.sum()
             stats.append({"cap": cap, "counts": torch.cat(seen, dim=1),
-                          "flags": flags.clone()})
+                          "flags": flags.clone(), "scanned": scanned})
         return flags
 
     return screen
@@ -909,26 +941,139 @@ def _unkey(keys):
     return torch.where(none, _INF, vals), torch.where(none, 0, keys & 0xFFFFFFFF)
 
 
+def _order_bits(P2: int) -> int:
+    """Bits an axis of the screen order's cell codes: 2**(3 * bits) cells,
+    between an eighth of P2 and P2, so that a segment of sorted candidates
+    spans a few neighbouring cells; 1 to 10."""
+    return min(10, max(1, -(-max(P2, 1).bit_length() // 3) - 1))
+
+
+def _screen_skips(D: int) -> bool:
+    """Whether the screen runs on its own order and skips segments: at D = 3
+    (the D <= 8 and any-D instances keep the full scan). No other gate: the
+    card measured the skip faster at every shape tried, lists of a ninth of
+    the cloud with the queries unsorted included (PERF.md)."""
+    return D == 3
+
+
+def screen_order_plain(p2, lengths2, ids=None):
+    """The screen's order of the candidates (D = 3) in plain PyTorch, the
+    twin of ``screen_order_cuda``: each cloud's first ``lengths2`` rows
+    sorted by cell code, ties in row order, the rows past them after, in
+    place. The code: per axis the cell floor((p - lo) / (hi - lo) * 2**bits),
+    ``bits = _order_bits(P2)``, clamped to the grid (0 where the box of the
+    valid rows, NaN coordinates ignored, has no extent or the ratio is NaN),
+    its bits interleaved x, y, z from the lowest. Returns (points (N, P2, 4)
+    float32 in that order, each x, y, z and the bits of its original index,
+    int32, or of ``ids[n, row]`` where given (``order_ids`` reads them);
+    boxes (N, ceil(P2 / 128), 8) float32, each segment's lo (3), 0, hi (3),
+    0 over its valid rows, NaN coordinates ignored, +inf / -inf where it has
+    none)."""
+    N, P2, _ = p2.shape
+    dev = p2.device
+    bits = _order_bits(P2)
+    side = float(1 << bits)
+    valid = torch.arange(P2, device=dev)[None, :] < lengths2.clamp(0, P2)[:, None]
+    seen = valid[..., None] & ~torch.isnan(p2)
+    lo = torch.where(seen, p2, _INF).amin(dim=1, keepdim=True)
+    hi = torch.where(seen, p2, -_INF).amax(dim=1, keepdim=True)
+    ext = hi - lo
+    frac = torch.where(ext > 0, (p2 - lo) / ext, 0.0) * side
+    cell = torch.fmin(torch.fmax(frac, frac.new_zeros(())),
+                      frac.new_full((), side - 1)).to(torch.int64)
+    code = torch.zeros((N, P2), dtype=torch.int64, device=dev)
+    for b in range(bits):
+        for a in range(3):
+            code |= ((cell[..., a] >> b) & 1) << (3 * b + a)
+    order = torch.sort(torch.where(valid, code, 1 << 31), dim=1, stable=True).indices
+    points = torch.gather(p2, 1, order[..., None].expand(N, P2, 3))
+    j = order if ids is None else torch.gather(ids.to(torch.int64), 1, order)
+    nseg = -(-P2 // _SEGMENT)
+    pad = (0, 0, 0, nseg * _SEGMENT - P2)
+    live = torch.nn.functional.pad(valid[..., None] & ~torch.isnan(points), pad)
+    live = live.view(N, nseg, _SEGMENT, 3)
+    segs = torch.nn.functional.pad(points, pad).view(N, nseg, _SEGMENT, 3)
+    slo = torch.where(live, segs, _INF).amin(dim=2)
+    shi = torch.where(live, segs, -_INF).amax(dim=2)
+    zero = slo.new_zeros((N, nseg, 1))
+    j = j.to(torch.int32).view(torch.float32)[..., None]
+    return torch.cat([points, j], dim=-1), torch.cat([slo, zero, shi, zero], dim=-1)
+
+
+def order_ids(points):
+    """The original indices (N, P2) int32 that the screen's order carries in
+    its points' fourth float."""
+    return points.view(torch.int32)[..., 3]
+
+
+def screen_order_cuda(p2, lengths2, ids=None):
+    """``screen_order_plain`` by ``csrc/knn.cu`` ``knn_screen_order_kernel``
+    on CUDA tensors (D = 3; ``ids`` int32): one launch, a cluster of blocks
+    a cloud. The points are a view of a buffer with ``_GROUP_SLOTS`` rows
+    more, which the screen's prefetch may read past the last cloud."""
+    N, P2, _ = p2.shape
+    dev = p2.device
+    points = torch.empty((N * P2 + _GROUP_SLOTS, 4), dtype=torch.float32, device=dev)
+    boxes = torch.empty((N, -(-P2 // _SEGMENT), 8), dtype=torch.float32, device=dev)
+    keys = torch.empty((2, N, P2), dtype=torch.int64, device=dev)
+    _build.check(
+        _lib().knn_screen_order(p2.data_ptr(), lengths2.data_ptr(),
+                                None if ids is None else ids.data_ptr(), N, P2,
+                                _order_bits(P2), keys.data_ptr(), points.data_ptr(),
+                                boxes.data_ptr(), _build.stream_ptr(dev)),
+        "knn_screen_order",
+    )
+    tracing.launch("knn_screen_order_cuda")
+    return points[:N * P2].view(N, P2, 4), boxes
+
+
+def segment_bound(q, lo, hi, norm: int):
+    """The screen's bound on the distance from queries q (..., 3) to every
+    point of the boxes [lo, hi] (..., 3), broadcast against each other
+    (csrc/knn.cu ``box_distance``), in its order of operations: per axis the
+    gap max(lo - q, q - hi, 0), NaN-ignoring as ``fmaxf`` is, squared at norm
+    2, summed axis by axis as ``pairwise_dist`` sums. Each step rounds to
+    nearest, which is monotone, so the bound is at most ``pairwise_dist`` of
+    q and any point in the box; never NaN."""
+    out = None
+    for a in range(3):
+        g = torch.fmax(lo[..., a] - q[..., a], q[..., a] - hi[..., a])
+        g = torch.fmax(g, g.new_zeros(()))
+        t = g * g if norm == 2 else g
+        out = t if out is None else out + t
+    return out
+
+
 def _plain_screener(p1, p2, lengths2, norm, ids=None):
     """``screen`` for ``_screened`` on the plain twin, queries in their
     given order: the distances, ``d < seed``, each query's count and flag,
     and the K smallest kept candidates by their ``screen_keys`` (index:
     ``ids``, p2's original indices, where p2 is reordered) written to every
-    row's slots; a flagged row's are then overwritten by the repair."""
-    N, P1, _ = p1.shape
+    row's slots; a flagged row's are then overwritten by the repair. Where
+    ``_screen_skips``, on ``screen_order_plain``'s order, each candidate of
+    a segment whose ``segment_bound`` is not below the query's seed left
+    out (the kernel's skip, per query)."""
+    N, P1, D = p1.shape
     P2 = p2.shape[1]
     pos = torch.arange(P2, device=p1.device)
-    j = pos.expand(N, P2) if ids is None else ids
     len2 = lengths2.clamp(0, P2)
 
     def screen(K, seed, cap, out):
+        cands, j, boxes = p2, (pos.expand(N, P2) if ids is None else ids), None
+        if _screen_skips(D):
+            cands, boxes = screen_order_plain(p2, lengths2, ids)
+            cands, j = cands[..., :3], order_ids(cands).to(torch.int64)
         flags = torch.empty((N, P1), dtype=torch.int32, device=p1.device)
         step = max(1, _FULL_MATRIX_MAX_ELEMS // max(1, N * P2))
         for a in range(0, P1, step):
             rows = slice(a, a + step)
-            d = pairwise_dist(p1[:, rows], p2, norm)
+            d = pairwise_dist(p1[:, rows], cands, norm)
             sd = seed[:, rows]
             kept = (d < sd[..., None]) & (pos < len2[:, None, None])
+            if boxes is not None:
+                need = segment_bound(p1[:, rows, None], boxes[:, None, :, :3],
+                                     boxes[:, None, :, 4:7], norm) < sd[..., None]
+                kept = kept & need.repeat_interleave(_SEGMENT, dim=-1)[..., :P2]
             count = kept.sum(dim=-1)
             flags[:, rows] = (~(sd < _INF) | (count < len2.clamp(max=K)[:, None])
                               | (count > cap)).to(torch.int32)

@@ -252,3 +252,117 @@ def test_screen_cap():
         1536 * s / 100_000, m)
     assert kk._screen_chunk(1, 100_000, 1536) == 100_000
     assert kk._screen_chunk(1, 10**6, 1536) * 1536 * 8 <= kk._LIST_BYTES
+
+
+# The screen's skip (D = 3): the screen runs on ``screen_order_plain``'s
+# order and leaves out every segment whose ``segment_bound`` is not below a
+# query's seed. Torch only: each case is held to the port's unseeded rounds.
+
+
+def _bound_case(name):
+    """(points (2, 700, 3), lengths, queries (2, 200, 3)) of one bound case;
+    the queries are spread over the valid points' scale."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    g = rng.normal(size=(2, 700, 3)).astype(np.float32)
+    lengths = (700, 700)
+    if name == "duplicated":
+        g = np.repeat(g[:, :70], 10, axis=1)
+    elif name == "plane":
+        g[..., 2] = 0.5
+    elif name == "line":
+        g[..., 1:] = np.float32([2.0, -1.0])
+    elif name == "tiny":
+        g *= np.float32(1e-20)
+    elif name == "huge":
+        g *= np.float32(1e20)
+    elif name == "two_lengths":
+        lengths = (641, 129)
+    q = (rng.normal(size=(2, 200, 3)) * np.abs(g).max()).astype(np.float32)
+    if name == "past_lengths":
+        lengths = (700, 333)
+        g[1, 333:] = np.float32(-1e30)
+    return torch.tensor(g), torch.tensor(lengths), torch.tensor(q)
+
+
+@pytest.mark.parametrize("norm", [1, 2])
+@pytest.mark.parametrize("name", ["random", "duplicated", "plane", "line", "tiny", "huge",
+                                  "past_lengths", "two_lengths"])
+def test_segment_bound_never_exceeds_a_member(name, norm):
+    """``segment_bound`` (the kernel's box_distance, in its order of
+    operations) is at most ``pairwise_dist`` from any query to any valid
+    point of the segment, for queries at random, at the points themselves
+    (bound 0) and on the boxes' faces and corners; each box holds exactly
+    its segment's valid rows (none: an empty box), and the rows past
+    lengths2 keep their place and widen no box."""
+    p2, lengths, q = _bound_case(name)
+    points, boxes = kk.screen_order_plain(p2, lengths)
+    ids = kk.order_ids(points).long()
+    P2 = p2.shape[1]
+    seg = torch.arange(P2) // kk._SEGMENT
+    gen = torch.Generator().manual_seed(3)
+    for n in range(2):
+        L = int(lengths[n])
+        valid = torch.arange(P2) < L
+        assert torch.equal(torch.sort(ids[n]).values, torch.arange(P2))
+        assert torch.equal(ids[n, L:], torch.arange(L, P2))
+        assert torch.equal(points[n, :, :3], p2[n, ids[n]])
+        lo, hi, pts = boxes[n, :, :3], boxes[n, :, 4:7], points[n, :, :3]
+        for s in range(boxes.shape[1]):
+            members = pts[valid & (seg == s)]
+            if len(members):
+                assert torch.equal(lo[s], members.amin(0))
+                assert torch.equal(hi[s], members.amax(0))
+            else:
+                assert (lo[s] == np.inf).all() and (hi[s] == -np.inf).all()
+        pick = [torch.rand((len(lo), 3), generator=gen) < 0.5 for _ in range(3)]
+        faces = torch.cat([torch.where(pick[0], lo, hi),
+                           torch.where(pick[1], lo, q[n, :len(lo)]),
+                           torch.where(pick[2], hi, q[n, -len(lo):])])
+        queries = torch.cat([q[n], pts[valid], faces])
+        queries = queries[torch.isfinite(queries).all(-1)]
+        lb = kk.segment_bound(queries[:, None], lo[None], hi[None], norm)
+        d = kk.pairwise_dist(queries, pts, norm)
+        assert (lb[:, seg] <= d)[:, valid].all()
+        inside = kk.segment_bound(pts[valid], lo[seg[valid]], hi[seg[valid]], norm)
+        assert (inside == 0).all()
+
+
+@pytest.mark.parametrize("at_seed", [False, True])
+@pytest.mark.parametrize("norm", [1, 2])
+def test_skip_equals_the_full_scan_and_the_rounds(monkeypatch, norm, at_seed):
+    """A grid cloud (ties across the K-th slot) seeded at each query's
+    exact K-th distance (``at_seed``: that candidate is left out, every
+    query is flagged and repaired, and some segments' bounds equal the
+    seed) or one float above it: the
+    screen on its order, segments skipped, gives the flags and outputs of
+    the full scan, and the call the unseeded rounds' result."""
+    lengths = (P2, 1000, 700)
+    p1, p2 = _clouds(9, levels=5)
+    args = (_t(p1), _t(p2), _t(lengths))
+    K = 100
+    base = kk.knn_topk(*args, K, norm, sample_bound=False)
+    wide = kk.knn_topk(*args, K + 1, norm, sample_bound=False)[0]
+    assert (wide[..., K - 1] == wide[..., K]).any()
+    kth = base[0][..., K - 1]
+    seed = kth if at_seed else torch.nextafter(kth, torch.tensor(np.inf))
+    tau = torch.nextafter(seed, torch.tensor(-np.inf))
+    assert torch.equal(kk.seed_of(tau), seed)
+    monkeypatch.setattr(kk, "kth_bounds", lambda *a, **kw: [tau])
+    points, boxes = kk.screen_order_plain(args[1], args[2])
+    lb = kk.segment_bound(args[0][:, :, None], boxes[:, None, :, :3], boxes[:, None, :, 4:7],
+                          norm)
+    assert (lb < seed[..., None]).float().mean() < 0.9  # the skip leaves segments out
+    assert bool((lb == seed[..., None]).any()) == at_seed  # and bounds equal to the seed
+    cap = kk.screen_cap(K, P2, S)
+    R = kk._rounds(K, P2)
+    outs = []
+    for skips in (True, False):
+        monkeypatch.setattr(kk, "_screen_skips", lambda D, skips=skips: skips)
+        out = (torch.zeros((R, N, P1, kk.ROUND_K)),
+               torch.zeros((R, N, P1, kk.ROUND_K), dtype=torch.int64))
+        flags = kk._plain_screener(*args, norm)(K, seed, cap, out)
+        outs.append((flags, *out))
+        got = kk.knn_topk(*args, K, norm, sample_bound=True, sample_s=S)
+        assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert bool(outs[0][0].bool().all()) == at_seed

@@ -71,13 +71,12 @@ collapsed to a point beside the normal step's, each with its longest row;
 the FPS grid round's fixed cost is timed on a cloud of 8 points a block,
 the block round's on 32 clouds of 512 points.
 
-Phase 4 holds the KNN kernel's Morton sorting (``sort_queries``,
-``sort_candidates``, both) bit-equal to the unsorted kernel in both norms
-at the north star (K=16, 100), config 1, the 20k tie cloud, a ragged batch
-of 3 clouds (lengths2 0, 1 and P2 - 1, garbage past them, a box per cloud)
-and a cloud whose every point appears twice, and equal to the plain twin
-but at the north star; shows a block starting at a partial last tile;
-prints the kernel's counters (groups, fired votes, drains, insertions,
+Phase 4 holds the KNN kernel's query sorting (``sort_queries``) bit-equal
+to the unsorted kernel in both norms at the north star (K=16, 100), config
+1, the 20k tie cloud, a ragged batch of 3 clouds (lengths2 0, 1 and P2 - 1,
+garbage past them, a box per cloud) and a cloud whose every point appears
+twice, and equal to the plain twin but at the north star; prints the
+kernel's counters (groups, fired votes, drains, insertions,
 pending appends) at the north star, unsorted and sorted, and the sorted
 times; drives config 4 (1M x 1M KNN, K=16, fwd+bwd through
 ``knn_points``) as a main path with its own launch counts, auto-sorted
@@ -98,14 +97,14 @@ against the plain path on the card (every query's indices and distances,
 both gradients); seeded calls bit-equal to unseeded ones at the north star
 (K=100 in both norms, K=16 and K=64 opted in), on the 20k tie cloud, the
 duplicated cloud and the ragged batch (bounds off for its lengths 0 and 1),
-each with the queries, the candidates and both sorted, all without a host
-sync; the screen's skip (``screen5``: its order equal to the plain twin,
-counts equal to the full scan's, the scanned share, a forced short last
-chunk, a P2 = 16,384, K = 1,000 call timed with and without it); bounds
-of -1 forcing the repair (its gate word 1, five launches, the
-result exact); a raw ``ub=`` round bit-equal to the plain twin, sentinel
-slots included; the counters' insertions with and without a seed at K=16
-and 64; and seeded against unseeded times.
+the queries sorted and not, all without a host sync; the screen's skip
+(``screen5``: its order equal to the plain twin, counts equal to the full
+scan's, the scanned share, a forced short last chunk, a P2 = 16,384,
+K = 1,000 call timed with and without it); bounds of -1 forcing the repair
+(its gate word 1, five launches, the result exact); a raw ``ub=`` round
+bit-equal to the plain twin, sentinel slots included; the counters'
+insertions with and without a seed at K=16 and 64; and seeded against
+unseeded times.
 
 Phase 6 drives the ring layer (``pytorch3d_pointops_tpu_torch.parallel``)
 over a ``("sp",)`` mesh of four shards on ``cuda:0`` as a main path with
@@ -371,7 +370,7 @@ def kernel_instances(log: str, kernel: str) -> dict:
 
 def phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,
            note_err):
-    """Morton sorting held against the unsorted kernel (and the plain twin
+    """Query sorting held against the unsorted kernel (and the plain twin
     at the smaller shapes), the kernel's counters unsorted and sorted at the
     north star, config 4 (1M x 1M KNN) as a main path held against the
     plain path, and packed/padded and sample_pdf on the card against the
@@ -379,12 +378,10 @@ def phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,
     import pytorch3d_pointops_tpu_torch as ppt
     from pytorch3d_pointops_tpu_torch.kernels import knn as kk
     from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
-    from pytorch3d_pointops_tpu_torch.kernels import spatial_sort as ss
     from pytorch3d_pointops_tpu_torch.ops.knn import _apply_pad_conventions
 
     dev = ns_p1.device
     erng = np.random.default_rng(args.seed + 2)
-    sorts = ((True, False), (False, True), (True, True))
 
     def full(N, P):
         return T(np.full(N, P), torch.int64)
@@ -420,63 +417,38 @@ def phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,
         l1 = full(N, P1)
         for K in Ks:
             for norm in (1, 2):
-                base_out = kk.knn_topk_cuda(q, r, l2, K, norm, sort_queries=False,
-                                            sort_candidates=False)
+                base_out = kk.knn_topk_cuda(q, r, l2, K, norm, sort_queries=False)
+                d, i = kk.knn_topk_cuda(q, r, l2, K, norm, sort_queries=True)
+                what = f"sorted knn {label} K={K} norm={norm}"
+                require(torch.equal(d, base_out[0]), f"{what}: dists")
+                require(torch.equal(i, base_out[1]), f"{what}: idx")
                 if vs_plain:
                     ref = _apply_pad_conventions(*kk.knn_topk_plain(q, r, l2, K, norm),
                                                  l1, l2, K, P1)
-                for sq, sc in sorts:
-                    d, i = kk.knn_topk_cuda(q, r, l2, K, norm, sort_queries=sq,
-                                            sort_candidates=sc)
-                    what = f"sorted knn {label} K={K} norm={norm} queries={sq} cands={sc}"
-                    require(torch.equal(d, base_out[0]), f"{what}: dists")
-                    require(torch.equal(i, base_out[1]), f"{what}: idx")
-                    if vs_plain:
-                        dk, ik = _apply_pad_conventions(d, i, l1, l2, K, P1)
-                        require(torch.equal(dk, ref[0]) and torch.equal(ik, ref[1]),
-                                f"{what}: differs from knn_topk_plain")
-    print(f"phase 4: sorted knn (queries, candidates, both) bit-equal to unsorted, "
+                    dk, ik = _apply_pad_conventions(d, i, l1, l2, K, P1)
+                    require(torch.equal(dk, ref[0]) and torch.equal(ik, ref[1]),
+                            f"{what}: differs from knn_topk_plain")
+    print(f"phase 4: knn with the queries sorted bit-equal to unsorted, "
           f"both norms, at {'; '.join(f'{c[0]} K={c[4]}' for c in cases)}; equal to "
           f"knn_topk_plain but at the north star ({time.perf_counter() - t0:.1f} s)")
-    # A start tile that is the partial last tile: the tie cloud's 20,000
-    # sorted candidates end in a partial tile, and some block starts there.
-    plan = kk.card_plans(tie1, tie2, 16, 2, carried=True)[0]
-    order = kk.candidate_order(tie1, tie2, full(1, 20000))
-    starts = kk.scan_starts(tie1, order, plan.queries * plan.threads, plan.tile,
-                            ss.morton_order(tie1))
-    last = -(-20000 // plan.tile) - 1
-    require(20000 % plan.tile and int((starts == last).sum()) > 0,
-            f"tie cloud: no block starts at the partial tile {last} ({kk.plan_name(plan)})")
-    print(f"  tie cloud, both sorted, {kk.plan_name(plan)}: {int((starts == last).sum())} "
-          f"of {starts.numel()} blocks start at the partial last tile ({20000 % plan.tile} "
-          f"candidates); start tiles span {int(starts.min())}-{int(starts.max())}")
-    # Other dimensions: the queries sort at any D; candidate sorting has
-    # kernel instances at D = 3 only and raises elsewhere.
+    # Other dimensions: the queries sort at any D.
     for D in (1, 2, 5):
         q, r = T(grid_points(erng, (2, 700, D))), T(grid_points(erng, (2, 900, D)))
         l2 = T(np.array([900, 444]), torch.int64)
-        out = kk.knn_topk_cuda(q, r, l2, 8, 2, sort_queries=False, sort_candidates=False)
-        srt = kk.knn_topk_cuda(q, r, l2, 8, 2, sort_queries=True, sort_candidates=False)
+        out = kk.knn_topk_cuda(q, r, l2, 8, 2, sort_queries=False)
+        srt = kk.knn_topk_cuda(q, r, l2, 8, 2, sort_queries=True)
         require(torch.equal(out[0], srt[0]) and torch.equal(out[1], srt[1]),
                 f"sorted queries D={D}: differ from unsorted")
-        try:
-            kk.knn_topk_cuda(q, r, l2, 8, 2, sort_candidates=True)
-            require(False, f"sort_candidates=True at D={D} did not raise")
-        except ValueError:
-            pass
-    print("  D in {1, 2, 5}: sorted queries bit-equal to unsorted; sort_candidates=True "
-          "raises")
+    print("  D in {1, 2, 5}: sorted queries bit-equal to unsorted")
 
     # The counters of one launch at the north star, K=16: unsorted and sorted.
     # Insertions depend on each query's scan order only: equal with the
-    # queries sorted; with the candidates sorted the order changes, but no
-    # query inserts fewer than K.
+    # queries sorted, and no query inserts fewer than K.
     ns_len = full(1, 100000)
     counts = {}
-    for name, (sq, sc) in (("unsorted", (False, False)), ("queries", (True, False)),
-                           ("candidates", (False, True)), ("both", (True, True))):
+    for name, sq in (("unsorted", False), ("queries", True)):
         c = kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, 16, 2, sort_queries=sq,
-                             sort_candidates=sc, instrument=True)[2]
+                             instrument=True)[2]
         counts[name] = dict(zip(kk.COUNTERS, c.sum(dim=(0, 1)).tolist()))
         counts[name]["fired_share"] = counts[name]["fired"] / counts[name]["groups"]
     print("  north-star K=16 counters (groups, fired votes, drains with work, "
@@ -486,10 +458,8 @@ def phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,
     require(all(c["admissions"] >= 16 * 100000 for c in counts.values()),
             "counters: fewer insertions than K a query")
     ms = {name: cuda_ms(lambda: kk.knn_topk_cuda(ns_p1, ns_p2, ns_len, 16, 2,
-                                                 sort_queries=sq, sort_candidates=sc),
-                        reps=5)
-          for name, (sq, sc) in (("unsorted", (False, False)), ("queries", (True, False)),
-                                 ("both", (True, True)), ("auto", (None, None)))}
+                                                 sort_queries=sq), reps=5)
+          for name, sq in (("unsorted", False), ("queries", True), ("auto", None))}
     print(f"  north-star knn_topk_cuda K=16 ms, sorts included: {json.dumps(ms)}")
 
     # Config 4: one cloud of 1M queries against 1M points, K=16, forward and
@@ -517,8 +487,7 @@ def phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,
             "config 4: dists or gradients not finite, or no gradient into p2")
     c4_len = full(1, 1_000_000)
     auto = kk.knn_topk_cuda(c4_p1, c4_p2, c4_len, 16, 2)
-    unsorted = kk.knn_topk_cuda(c4_p1, c4_p2, c4_len, 16, 2, sort_queries=False,
-                                sort_candidates=False)
+    unsorted = kk.knn_topk_cuda(c4_p1, c4_p2, c4_len, 16, 2, sort_queries=False)
     require(torch.equal(auto[1], unsorted[1]) and torch.equal(auto[0], unsorted[0]),
             "config 4: auto-sorted knn differs from unsorted")
     # The main path's step against the same step through the plain twins on
@@ -546,9 +515,8 @@ def phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,
     note_err("rows", serr4)
     require(serr4 <= TOL, f"config 4 scatter: err {serr4}")
     fwd = {name: cuda_ms(lambda: kk.knn_topk_cuda(c4_p1, c4_p2, c4_len, 16, 2,
-                                                  sort_queries=sq, sort_candidates=sc),
-                         reps=3)
-           for name, (sq, sc) in (("unsorted", (False, False)), ("auto", (None, None)))}
+                                                  sort_queries=sq), reps=3)
+           for name, sq in (("unsorted", False), ("auto", None))}
     with torch.no_grad():
         fwd["knn_points"] = wall_ms(lambda: ppt.knn_points(c4_p1, c4_p2, K=16), reps=3)
     step = wall_ms(lambda: knn_step(c4_p1, c4_p2, None, None, 16), reps=3)
@@ -644,12 +612,10 @@ def screen5(kk, p1, p2, lengths2, plan, s):
     rag[2, 13000:] = -1e30
     rag[3] = rag[3, torch.arange(20000, device=dev) % 4]
     rag_len = torch.tensor([20000, 1, 13000, 0], device=dev)
-    ids = torch.randperm(20000, device=dev, generator=g).int()[None].expand(4, -1)
-    for what, (pts, l2, cid) in {"north star": (p2, lengths2, None),
-                                 "ragged": (rag, rag_len, ids.contiguous())}.items():
-        got = kk.screen_order_cuda(pts, l2, cid)
-        want = kk.screen_order_plain(pts.cpu(), l2.cpu(),
-                                     None if cid is None else cid.cpu())
+    for what, (pts, l2) in {"north star": (p2, lengths2),
+                            "ragged": (rag, rag_len)}.items():
+        got = kk.screen_order_cuda(pts, l2)
+        want = kk.screen_order_plain(pts.cpu(), l2.cpu())
         require(torch.equal(got[0].cpu().view(torch.int32), want[0].view(torch.int32))
                 and torch.equal(got[1].cpu(), want[1]),
                 f"screen order ({what}): differs from screen_order_plain")
@@ -712,8 +678,8 @@ def screen5(kk, p1, p2, lengths2, plan, s):
     for name, (cands, boxes) in {"screen kernel, full scan": (p2, None),
                                  "screen kernel, skipping": (order_p, order_boxes)}.items():
         args = (p1.data_ptr(), cands.data_ptr(), lengths2.data_ptr(), rows32.data_ptr(),
-                None, seed.data_ptr(),
-                None if boxes is None else boxes.data_ptr(), 1, p1.shape[1], P2, 3, 0,
+                seed.data_ptr(), None if boxes is None else boxes.data_ptr(), 1,
+                p1.shape[1], P2, 3, 0,
                 p1.shape[1], cap, 2, *splan, lists.data_ptr(), counts.data_ptr(), None,
                 stream)
         ms[name] = cuda_ms(lambda args=args: lib.knn_screen(*args), reps=10)
@@ -854,9 +820,9 @@ def phase5(cases, plain_path, note_err):
           f"{gerr[1]:.3g}")
     screen5(kk, ns_p1, ns_p2, ns_len, plan, s_ns)
 
-    # Seeded bit-equal to unseeded: each case with each sort (candidates
-    # where the kernel has carried instances), both norms at the north star
-    # K=100; single rounds opt in with sample_bound=True.
+    # Seeded bit-equal to unseeded: each case with the queries sorted and
+    # not, both norms at the north star K=100; single rounds opt in with
+    # sample_bound=True.
     rag = cases[3]
     sweep = [
         ("north star", ns_p1, ns_p2, ns_len, ((100, 1), (100, 2), (16, 2), (64, 2)), None),
@@ -870,17 +836,14 @@ def phase5(cases, plain_path, note_err):
     for label, q, r, l2, kn, s in sweep:
         for K, norm in kn:
             base = kk.knn_topk_cuda(q, r, l2, K, norm, sort_queries=False,
-                                    sort_candidates=False, sample_bound=False)
-            for sq, sc in ((False, False), (True, False), (False, True), (True, True)):
-                if sc and not kk._carried_instance(3, K, norm):
-                    continue
+                                    sample_bound=False)
+            for sq in (False, True):
                 with no_host_sync():
                     d, i = kk.knn_topk_cuda(q, r, l2, K, norm, sort_queries=sq,
-                                            sort_candidates=sc, sample_bound=True,
-                                            sample_s=s)
+                                            sample_bound=True, sample_s=s)
                 calls += 1
                 require(torch.equal(d, base[0]) and torch.equal(i, base[1]),
-                        f"seeded knn {label} K={K} norm={norm} queries={sq} cands={sc}: "
+                        f"seeded knn {label} K={K} norm={norm} queries={sq}: "
                         "differs from unseeded")
     print(f"  seeded bit-equal to unseeded in {calls} calls, each sort, no host sync: "
           + "; ".join(f"{c[0]} (K, norm) {list(c[4])}" for c in sweep)
@@ -1885,23 +1848,22 @@ def main() -> int:
         with open(knn_log) as f:
             knn_text = f.read()
         instances = kernel_instances(knn_text, "knn_topk_kernel")
-        # knn_topk_kernel<KB, DIM, NORM, Q, CHAINED, CARRIED, COUNT>.
+        # knn_topk_kernel<KB, DIM, NORM, Q, CHAINED, COUNT>.
         by_dim = {}
         for key, (regs, spill) in sorted(instances.items()):
-            bucket, _, _, q, chained, carried, count = key
+            bucket, _, _, q, chained, count = key
             by_dim.setdefault(key[1:3], []).append(
-                f"KB{bucket}{'c' if chained else ''}{'s' if carried else ''}"
-                f"{'n' if count else ''}/Q{q}:{regs}r{f'+{spill}B' if spill else ''}")
-        print("  knn_topk_kernel instances: KB<bucket>[c chained][s candidates "
-              "sorted][n counting]/Q<queries a thread>:<registers>r[+<spill bytes>B]")
+                f"KB{bucket}{'c' if chained else ''}{'n' if count else ''}"
+                f"/Q{q}:{regs}r{f'+{spill}B' if spill else ''}")
+        print("  knn_topk_kernel instances: KB<bucket>[c chained][n counting]"
+              "/Q<queries a thread>:<registers>r[+<spill bytes>B]")
         for (kdim, knorm), items in sorted(by_dim.items()):
             print(f"  knn_topk_kernel DIM={kdim} norm={knorm}: {' '.join(items)}")
         spilled = [k for k, (_, s) in instances.items() if k[1] == 3 and s]
         require(instances and not spilled, f"knn D=3 instances spill: {spilled}")
         # Seeding reads its seeds and gate at run time: no instance of its own.
-        require(len(instances) == 93, f"knn: {len(instances)} instances, not 93")
-        require(any(k[5] for k in instances) and any(k[6] for k in instances),
-                "knn: no candidate-sorted or no counting instance was built")
+        require(len(instances) == 74, f"knn: {len(instances)} instances, not 74")
+        require(any(k[5] for k in instances), "knn: no counting instance was built")
         # knn_screen_kernel<DIM, NORM, Q>: Q 1 and 2 at DIM 3 and 8, Q 1 at 0.
         screen_inst = kernel_instances(knn_text, "knn_screen_kernel")
         print("  knn_screen_kernel instances <DIM,NORM,Q> (registers, spill bytes): "

@@ -50,29 +50,15 @@
 // warp's and a block's queries are neighbours, so their votes fire
 // together.
 //
-// Candidate sorting (CARRIED; ports knn_pallas.py's sort_candidates): the
-// wrapper hands p2 in Morton order with each row's original index
-// (cand_ids) and a start tile per block (starts), the tile whose Morton
-// codes hold the block's median query. A block scans tile (start + t) mod
-// tiles at step t, so its kth values are nearly final after the first tile
-// and later votes rarely fire. Tiles then arrive out of index order, so the
-// state is kept lexicographic on (value, original index) explicitly: the
-// vote and the pending lists take d <= kth (ties may still win on index),
-// and admit compares and places by (value, index). The original indices
-// are staged with the tile, in each candidate's fourth (padding) float, so
-// a drain reads one with the candidate. Outputs are original indices. Rows
-// past lengths2 were sorted last by the wrapper, so the
-// truncation by position stays right.
-//
 // Seeding (ports knn_pallas.py's seeded kernel): the wrapper may pass ub,
 // one seed a query in the kernel's query order, the next float above a
 // sampled upper bound on its kth distance. The state then starts as K
 // entries (seed, kSent) instead of (inf, 0), so the vote screens at the
 // bound from the first tile and a query inserts only the candidates below
 // it. The rules above hold unchanged: a candidate equal to the seed sorts
-// after the seed entries without CARRIED (v > d) and before them with it
-// (i == kSent > j): a superset admission into an exact insert. A kSent left
-// in a slot the cloud could have filled means the bound was too tight; the
+// after the seed entries (v > d): a superset admission into an exact
+// insert. A kSent left in a slot the cloud could have filled means the
+// bound was too tight; the
 // wrapper detects that on the device and reruns the round unseeded, gated
 // on per-query flags (gate: a block none of whose queries is flagged returns
 // at once; the single-round repair flags every query or none). A seed of
@@ -173,21 +159,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Issue the copies of cnt candidates (cnt * D floats at src) into dst at
-// stride S; CARRIED (D = 3) also copies each one's original index (cnt ints
-// at ids) into its fourth, padding float. Each thread commits one group of
-// copies.
-template <int DIM, bool CARRIED>
-__device__ __forceinline__ void stage_tile(float* dst, const float* src,
-                                           const int* ids, int cnt, int D, int S) {
+// stride S. Each thread commits one group of copies.
+template <int DIM>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, int cnt,
+                                           int D, int S) {
   const int total = cnt * D;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
     const int c = DIM == 3 ? e / 3 : e / D;
     cp_async_f32(dst + c * S + (e - c * (DIM == 3 ? 3 : D)), src + e);
-  }
-  if constexpr (CARRIED) {
-    for (int c = threadIdx.x; c < cnt; c += blockDim.x) {
-      cp_async_f32(dst + c * S + 3, reinterpret_cast<const float*>(ids + c));
-    }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -237,47 +216,33 @@ __device__ __forceinline__ float distance(const float* q, const Cand<DIM>& c,
   }
 }
 
-// Whether entry (v, i) sorts after candidate (d, j): by value, and with
-// CARRIED (candidates out of index order) by index among equal values;
-// without it every entry already held has a lower index than j.
-template <bool CARRIED>
-__device__ __forceinline__ bool after(float v, int i, float d, int j) {
-  return v > d || (CARRIED && v == d && i > j);
-}
-
-// Insert (dist, j) if it sorts before the kth entry (and, for a chained
-// round, lexicographically after the previous round's last entry): behind
-// every entry that does not sort after it. Slot s takes slot s-1's entry
-// when that entry sorts after the candidate, else the candidate when slot s
-// held one that does; walking s downward reads slots not yet written.
-// Returns whether it was inserted.
-template <int KB, bool CHAINED, bool CARRIED>
+// Insert (dist, j) if it is below the kth value (and, for a chained round,
+// lexicographically after the previous round's last entry): behind every
+// entry of equal value, since candidates arrive in ascending index and every
+// entry already held has a lower index than j. Slot s takes slot s-1's entry
+// when that entry's value is above dist, else the candidate when slot s held
+// one above it; walking s downward reads slots not yet written. Returns
+// whether it was inserted.
+template <int KB, bool CHAINED>
 __device__ __forceinline__ bool admit(float (&bd)[KB], int (&bi)[KB],
                                       float dist, int j, float lbd, int lbi) {
-  if (!after<CARRIED>(bd[KB - 1], bi[KB - 1], dist, j)) return false;
+  if (!(bd[KB - 1] > dist)) return false;
   if (CHAINED && !(dist > lbd || (dist == lbd && j > lbi))) return false;
 #pragma unroll
   for (int s = KB - 1; s > 0; --s) {
-    if (after<CARRIED>(bd[s - 1], bi[s - 1], dist, j)) {
+    if (bd[s - 1] > dist) {
       bd[s] = bd[s - 1];
       bi[s] = bi[s - 1];
-    } else if (after<CARRIED>(bd[s], bi[s], dist, j)) {
+    } else if (bd[s] > dist) {
       bd[s] = dist;
       bi[s] = j;
     }
   }
-  if (after<CARRIED>(bd[0], bi[0], dist, j)) {
+  if (bd[0] > dist) {
     bd[0] = dist;
     bi[0] = j;
   }
   return true;
-}
-
-// The vote's and the pending lists' test of a distance against the kth:
-// strict without CARRIED; with it, ties too (admit decides them by index).
-template <bool CARRIED>
-__device__ __forceinline__ bool below_kth(float d, float kth) {
-  return CARRIED ? d <= kth : d < kth;
 }
 
 // One thread's queries and their top-K state, and the scan of one staged
@@ -294,9 +259,8 @@ __device__ __forceinline__ bool below_kth(float d, float kth) {
 // lane had a candidate; checking each candidate against the kth as it was
 // when the list was filled admits a superset of what an insertion in
 // ascending j admits, so the drained state is the same.
-template <int KB, int DIM, int NORM, int Q, bool CHAINED, bool CARRIED, bool COUNT>
+template <int KB, int DIM, int NORM, int Q, bool CHAINED, bool COUNT>
 struct Scan {
-  static_assert(!CARRIED || DIM == 3, "original indices ride in D=3 padding");
   static constexpr int U = kGroupSlots / Q;  // candidates a group
   static constexpr int C = 2 * U;            // pending list capacity
   static constexpr int QD = DIM > 0 ? DIM : 1;
@@ -349,7 +313,7 @@ struct Scan {
       for (int qq = 0; qq < Q; ++qq) {
         const float d = dist(qq, c[u]);
         dg[qq][u] = d;
-        hit[qq] |= below_kth<CARRIED>(d, bd[qq][KB - 1]) &&
+        hit[qq] |= d < bd[qq][KB - 1] &&
                    (!CHAINED || d >= lbd[qq]);
       }
     }
@@ -364,7 +328,7 @@ struct Scan {
       const float kth = bd[qq][KB - 1];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        if ((!TAIL || g + u < cnt) && below_kth<CARRIED>(dg[qq][u], kth) &&
+        if ((!TAIL || g + u < cnt) && dg[qq][u] < kth &&
             (!CHAINED || dg[qq][u] >= lbd[qq])) {
           *slot(qq, npend[qq]++) = g + u;
           if constexpr (COUNT) ++screened;
@@ -387,11 +351,9 @@ struct Scan {
     for (int qq = 0; qq < Q; ++qq) {
       for (int e = 0; e < npend[qq]; ++e) {
         const int c = *slot(qq, e);
-        const Cand<DIM> cand = load_cand<DIM>(cur + c * S);
-        int j = t0 + c;
-        if constexpr (CARRIED) j = __float_as_int(cand.v[3]);
-        const bool in = admit<KB, CHAINED, CARRIED>(bd[qq], bi[qq], dist(qq, cand),
-                                                    j, lbd[qq], lbi[qq]);
+        const bool in = admit<KB, CHAINED>(bd[qq], bi[qq],
+                                           dist(qq, load_cand<DIM>(cur + c * S)),
+                                           t0 + c, lbd[qq], lbi[qq]);
         if constexpr (COUNT) admitted += in;
       }
       npend[qq] = 0;
@@ -447,16 +409,15 @@ struct Scan {
 
 // Thread t of block b owns queries b * Q * blockDim.x + qq * blockDim.x + t.
 // Shared memory: two tiles of (tile, S) floats, then the pending lists.
-template <int KB, int DIM, int NORM, int Q, bool CHAINED, bool CARRIED, bool COUNT>
+template <int KB, int DIM, int NORM, int Q, bool CHAINED, bool COUNT>
 __global__ void __launch_bounds__(kMaxThreads) knn_topk_kernel(
     const float* __restrict__ p1, const float* __restrict__ p2,
     const int64_t* __restrict__ lengths2, const float* __restrict__ lb_d,
     const int64_t* __restrict__ lb_i, const int* __restrict__ rows,
-    const int* __restrict__ cand_ids, const int* __restrict__ starts,
     unsigned long long* __restrict__ counts, const float* __restrict__ ub,
     const int* __restrict__ gate, int P1, int P2, int D, int K, int tile,
     float* __restrict__ out_d, int64_t* __restrict__ out_i) {
-  using State = Scan<KB, DIM, NORM, Q, CHAINED, CARRIED, COUNT>;
+  using State = Scan<KB, DIM, NORM, Q, CHAINED, COUNT>;
   extern __shared__ float4 smem_f4[];
   float* const stage = reinterpret_cast<float*>(smem_f4);
   const int S = stride_of(DIM, D);
@@ -509,31 +470,17 @@ __global__ void __launch_bounds__(kMaxThreads) knn_topk_kernel(
   int64_t len64 = lengths2[n];
   const int len2 = (int)(len64 < 0 ? 0 : (len64 > P2 ? P2 : len64));
   const float* p2n = p2 + (int64_t)n * P2 * D;
-  const int* idn = CARRIED ? cand_ids + (int64_t)n * P2 : nullptr;
   const int tiles = (len2 + tile - 1) / tile;
-  // Step t scans tile (start + t) mod tiles: start is 0 but with CARRIED.
-  int start = CARRIED ? starts[(int64_t)n * gridDim.x + blockIdx.x] : 0;
-  if (start < 0 || start >= tiles) start = 0;
-  const auto first_of = [&](int t) {
-    const int r = start + t;
-    return (r >= tiles ? r - tiles : r) * tile;
-  };
-  if (tiles > 0) {
-    const int s0 = first_of(0);
-    stage_tile<DIM, CARRIED>(stage, p2n + (int64_t)s0 * D,
-                             CARRIED ? idn + s0 : nullptr, min(tile, len2 - s0),
-                             D, S);
-  }
+  if (tiles > 0) stage_tile<DIM>(stage, p2n, min(tile, len2), D, S);
 
   for (int t = 0; t < tiles; ++t) {
     cp_async_wait_all();
-    __syncthreads();  // step t's tile is staged; no thread still reads t-1's
-    const int t0 = first_of(t);
+    __syncthreads();  // tile t is staged; no thread still reads t-1's
+    const int t0 = t * tile;
     if (t + 1 < tiles) {
-      const int t1 = first_of(t + 1);
-      stage_tile<DIM, CARRIED>(stage + ((t + 1) & 1) * tile * S,
-                               p2n + (int64_t)t1 * D, CARRIED ? idn + t1 : nullptr,
-                               min(tile, len2 - t1), D, S);
+      const int t1 = (t + 1) * tile;
+      stage_tile<DIM>(stage + ((t + 1) & 1) * tile * S, p2n + (int64_t)t1 * D,
+                      min(tile, len2 - t1), D, S);
     }
     st.scan_tile(stage + (t & 1) * tile * S, t0, min(tile, len2 - t0));
   }
@@ -575,24 +522,22 @@ struct Args {
   const float* lb_d;
   const int64_t* lb_i;
   const int* rows;
-  const int* cand_ids;
-  const int* starts;
   unsigned long long* counts;
   const float* ub;
   const int* gate;
   int N, P1, P2, D, K;
   float* out_d;
   int64_t* out_i;
-  bool carried, count;  // the variant: carried (cand_ids), counting (counts)
+  bool count;  // the variant: counting (counts)
 };
 
 // Launch one instance, or (resident != null) report how many of its blocks
 // fit on one SM at this block size and tile instead.
-template <int KB, int DIM, int NORM, int Q, bool CHAINED, bool CARRIED, bool COUNT>
+template <int KB, int DIM, int NORM, int Q, bool CHAINED, bool COUNT>
 cudaError_t run(const Args& a, int threads, int tile, cudaStream_t stream,
                 int* resident) {
-  auto kernel = knn_topk_kernel<KB, DIM, NORM, Q, CHAINED, CARRIED, COUNT>;
-  using State = Scan<KB, DIM, NORM, Q, CHAINED, CARRIED, COUNT>;
+  auto kernel = knn_topk_kernel<KB, DIM, NORM, Q, CHAINED, COUNT>;
+  using State = Scan<KB, DIM, NORM, Q, CHAINED, COUNT>;
   const size_t smem = (2 * (size_t)tile * stride_of(DIM, a.D) +
                        (size_t)Q * State::C * threads) * sizeof(float);
   if (smem > kDefaultSmem) {
@@ -606,38 +551,23 @@ cudaError_t run(const Args& a, int threads, int tile, cudaStream_t stream,
   }
   const dim3 grid((a.P1 + Q * threads - 1) / (Q * threads), a.N);
   kernel<<<grid, threads, smem, stream>>>(
-      a.p1, a.p2, a.lengths2, a.lb_d, a.lb_i, a.rows, a.cand_ids, a.starts,
-      a.counts, a.ub, a.gate, a.P1, a.P2, a.D, a.K, tile, a.out_d, a.out_i);
+      a.p1, a.p2, a.lengths2, a.lb_d, a.lb_i, a.rows, a.counts, a.ub, a.gate,
+      a.P1, a.P2, a.D, a.K, tile, a.out_d, a.out_i);
   return cudaGetLastError();
 }
 
-// The carried (candidate-sorted) and counting variants exist only where
-// chip_smoke.py and tune_knn.py drive them (kernels/knn.py
-// _carried_instance, _counted_instance): the H100 measured candidate
-// sorting slower at every shape (PERF.md), so no auto gate takes it. Both
-// at D = 3 for K buckets of 8 and more, at norm 1 all but the 32-key
-// bucket (the single-round 64-key instance sizes the chained rounds'
-// plan); counting at norm 2, in single rounds.
+// The counting variant exists only where chip_smoke.py and tune_knn.py
+// drive it (kernels/knn.py _counted_instance): D = 3, norm 2, K buckets of 8
+// and more, in single rounds.
 template <int KB, int DIM, int NORM, int Q, bool CHAINED>
 cudaError_t pick_mode(const Args& a, int threads, int tile, cudaStream_t stream,
                       int* resident) {
-  constexpr bool kCarried = DIM == 3 && KB >= 8 && (NORM == 2 || KB != 32);
   constexpr bool kCount = DIM == 3 && NORM == 2 && KB >= 8 && !CHAINED;
   if (!a.count) {
-    if (!a.carried) {
-      return run<KB, DIM, NORM, Q, CHAINED, false, false>(a, threads, tile, stream,
-                                                          resident);
-    }
-    if constexpr (kCarried) {
-      return run<KB, DIM, NORM, Q, CHAINED, true, false>(a, threads, tile, stream,
-                                                         resident);
-    }
-  } else if constexpr (kCount) {
-    return a.carried
-               ? run<KB, DIM, NORM, Q, CHAINED, true, true>(a, threads, tile,
-                                                            stream, resident)
-               : run<KB, DIM, NORM, Q, CHAINED, false, true>(a, threads, tile,
-                                                             stream, resident);
+    return run<KB, DIM, NORM, Q, CHAINED, false>(a, threads, tile, stream, resident);
+  }
+  if constexpr (kCount) {
+    return run<KB, DIM, NORM, Q, CHAINED, true>(a, threads, tile, stream, resident);
   }
   return cudaErrorNotSupported;
 }
@@ -790,7 +720,6 @@ struct Screen {
   float wide[Q];  // the vote's bound: seed widened by D * 2^-20 of itself
   int cnt[Q];
   unsigned long long* list[Q];
-  const int* ids;  // the cloud's candidates' original indices, or null
   const float4* box;  // the cloud's segment boxes (lo, hi), or null: no skip
   int* shared_cnt;    // the skip: the block's counts, query qq of lane l at 32 qq + l
   unsigned long long* pend;  // the skip: this warp's pending keys, (Q, kPend, 32)
@@ -866,10 +795,7 @@ struct Screen {
           const int u = __ffs(near) - 1;
           near &= near - 1;
           const float d = dist(qq, load_cand<DIM>(cur + (g + u) * S));
-          const int pos = t0 + g + u;
-          if (d < seed[qq]) {
-            put(qq, cnt[qq]++, d, ids != nullptr ? (unsigned)ids[pos] : pos);
-          }
+          if (d < seed[qq]) put(qq, cnt[qq]++, d, t0 + g + u);
         }
       }
     }
@@ -1025,8 +951,8 @@ struct Screen {
 // to the query's list, lists + (n * nq + query) * cap, as one key; counts
 // (N, nq) gets each query's whole count. A block none of whose queries has a
 // finite seed scans nothing (the select flags them). boxes (N, ceil(P2 /
-// kSegment), 8) or null: p2 is the screen's order (N, P2, 4), cand_ids is
-// unused, lane l of every warp of block b holds the chunk queries
+// kSegment), 8) or null: p2 is the screen's order (N, P2, 4), lane l of
+// every warp of block b holds the chunk queries
 // b * 32 * Q + 32 * qq + l (consecutive in the queries' order, so the skip
 // tests are coherent), and each warp scans, from device memory, its share of
 // the segments one of them needs (csrc header, "The screen's skip");
@@ -1037,8 +963,8 @@ template <int DIM, int NORM, int Q>
 __global__ void __launch_bounds__(kMaxThreads, 2) knn_screen_kernel(
     const float* __restrict__ p1, const float* __restrict__ p2,
     const int64_t* __restrict__ lengths2, const int* __restrict__ rows,
-    const int* __restrict__ cand_ids, const float* __restrict__ seeds,
-    const float* __restrict__ boxes, int P1, int P2, int D, int q0, int nq,
+    const float* __restrict__ seeds, const float* __restrict__ boxes, int P1,
+    int P2, int D, int q0, int nq,
     int cap, int tile, unsigned long long* __restrict__ lists,
     int* __restrict__ counts, unsigned long long* __restrict__ seg_counts) {
   extern __shared__ float4 smem_f4[];
@@ -1055,7 +981,6 @@ __global__ void __launch_bounds__(kMaxThreads, 2) knn_screen_kernel(
   st.D = D;
   st.S = S;
   st.cap = cap;
-  st.ids = cand_ids != nullptr ? cand_ids + (int64_t)n * P2 : nullptr;
   st.box = skip ? reinterpret_cast<const float4*>(boxes) +
                       (int64_t)n * ((P2 + kSegment - 1) / kSegment) * 2
                 : nullptr;
@@ -1103,16 +1028,16 @@ __global__ void __launch_bounds__(kMaxThreads, 2) knn_screen_kernel(
   } else {
     const int tiles = __syncthreads_or(seeded) ? (len2 + tile - 1) / tile : 0;
     if (tiles > 0) {
-      stage_tile<DIM, false>(stage, p2n, nullptr, min(tile, len2), D, S);
+      stage_tile<DIM>(stage, p2n, min(tile, len2), D, S);
     }
     for (int t = 0; t < tiles; ++t) {
       cp_async_wait_all();
       __syncthreads();  // tile t is staged; no thread still reads t-1's
       const int t0 = t * tile;
       if (t + 1 < tiles) {
-        stage_tile<DIM, false>(stage + ((t + 1) & 1) * tile * S,
-                               p2n + (int64_t)(t0 + tile) * D, nullptr,
-                               min(tile, len2 - t0 - tile), D, S);
+        stage_tile<DIM>(stage + ((t + 1) & 1) * tile * S,
+                        p2n + (int64_t)(t0 + tile) * D, min(tile, len2 - t0 - tile),
+                        D, S);
       }
       st.template scan_range<false>(stage + (t & 1) * tile * S, t0, 0,
                                     min(tile, len2 - t0));
@@ -1272,7 +1197,6 @@ struct ScreenArgs {
   const float* p2;
   const int64_t* lengths2;
   const int* rows;
-  const int* cand_ids;
   const float* seeds;
   const float* boxes;
   int N, P1, P2, D, q0, nq, cap;
@@ -1302,10 +1226,9 @@ cudaError_t run_screen(const ScreenArgs& a, int threads, int tile,
   }
   const int per_block = a.boxes != nullptr ? 32 * Q : Q * threads;  // queries
   const dim3 grid((a.nq + per_block - 1) / per_block, a.N);
-  kernel<<<grid, threads, smem, stream>>>(a.p1, a.p2, a.lengths2, a.rows,
-                                          a.cand_ids, a.seeds, a.boxes, a.P1, a.P2,
-                                          a.D, a.q0, a.nq, a.cap, tile, a.lists,
-                                          a.counts, a.seg_counts);
+  kernel<<<grid, threads, smem, stream>>>(a.p1, a.p2, a.lengths2, a.rows, a.seeds,
+                                          a.boxes, a.P1, a.P2, a.D, a.q0, a.nq, a.cap,
+                                          tile, a.lists, a.counts, a.seg_counts);
   return cudaGetLastError();
 }
 
@@ -1377,8 +1300,8 @@ __device__ __forceinline__ unsigned cell_code(const float* p, const float* lo,
 // and a pass ranks a warp's rows 32 at a time by __match_any_sync, so the
 // places follow (digit, block, warp, row)); rows past lengths2 stay where
 // they are, after them. Writes out_p (N, P2, 4) the points in that order,
-// each as x, y, z and the bits of its original index (ids[n, row] where
-// given; the screen reads a candidate and its index as one float4), and
+// each as x, y, z and the bits of its original index (the screen reads a
+// candidate and its index as one float4), and
 // boxes (N, ceil(P2 / kSegment), 8): each segment's lo (3), 0, hi (3), 0
 // over its valid rows (+inf / -inf where it has none; NaN coordinates
 // ignored). keys (2, N, P2): scratch. Blocks exchange counts through
@@ -1386,8 +1309,7 @@ __device__ __forceinline__ unsigned cell_code(const float* p, const float* lo,
 // cluster barrier with __ldcg (L2, never a stale L1 line).
 __global__ void __cluster_dims__(kOrderBlocks, 1, 1) __launch_bounds__(kOrderThreads)
     knn_screen_order_kernel(const float* __restrict__ p2,
-                            const int64_t* __restrict__ lengths2,
-                            const int* __restrict__ ids, int P2, int bits,
+                            const int64_t* __restrict__ lengths2, int P2, int bits,
                             unsigned long long* __restrict__ keys,
                             float* __restrict__ out_p, float* __restrict__ boxes) {
   namespace cg = cooperative_groups;
@@ -1559,9 +1481,8 @@ __global__ void __cluster_dims__(kOrderBlocks, 1, 1) __launch_bounds__(kOrderThr
           shi[a] = fmaxf(shi[a], v[a]);
         }
       }
-      const int orig = ids != nullptr ? ids[base + i] : i;
       reinterpret_cast<float4*>(out_p)[base + k] =
-          make_float4(v[0], v[1], v[2], __int_as_float(orig));
+          make_float4(v[0], v[1], v[2], __int_as_float(i));
     }
     for (int a = 0; a < 3; ++a) {
       for (int o = 16; o > 0; o >>= 1) {
@@ -1585,51 +1506,44 @@ __global__ void __cluster_dims__(kOrderBlocks, 1, 1) __launch_bounds__(kOrderThr
 // p1 (N, P1, D), p2 (N, P2, D) float32; lengths2 (N,) int64; lb_d/lb_i
 // (N, P1) or null (then K <= 64, else K == 64 and q == 1); rows (N, P1)
 // int32, a permutation of each cloud's rows (the order the kernel takes the
-// queries of p1 in; lb and outputs are in that order), or null; cand_ids
-// (N, P2)
-// int32 original indices and starts (N, blocks) int32 start tiles, or both
-// null (p2 in index order); counts (N, blocks, 5) uint64 zeroed, or null;
-// ub (N, P1) float32 seeds in the kernel's query order, or null (unseeded);
-// gate (N, P1) int32 repair flags in the kernel's query order, or null: a
-// block none of whose queries is flagged does nothing; out_d/out_i (N, P1, K) with 1 <= K <= 64. q queries a thread, threads a
-// block (a multiple of 32, at most 256), tile candidates a staged tile;
-// blocks = ceil(P1 / (q * threads)). Returns the launch's cudaError_t.
+// queries of p1 in; lb and outputs are in that order), or null; counts
+// (N, blocks, 5) uint64 zeroed, or null; ub (N, P1) float32 seeds in the
+// kernel's query order, or null (unseeded); gate (N, P1) int32 repair flags
+// in the kernel's query order, or null: a block none of whose queries is
+// flagged does nothing; out_d/out_i (N, P1, K) with 1 <= K <= 64. q queries
+// a thread, threads a block (a multiple of 32, at most 256), tile
+// candidates a staged tile; blocks = ceil(P1 / (q * threads)). Returns the
+// launch's cudaError_t.
 extern "C" int knn_topk(const float* p1, const float* p2,
                         const int64_t* lengths2, const float* lb_d,
                         const int64_t* lb_i, const int* rows,
-                        const int* cand_ids, const int* starts,
                         unsigned long long* counts, const float* ub,
                         const int* gate, int N,
                         int P1, int P2, int D, int K, int norm, int q,
                         int threads, int tile, float* out_d, int64_t* out_i,
                         void* stream) {
   if (N <= 0 || P1 <= 0) return cudaSuccess;
-  if ((cand_ids == nullptr) != (starts == nullptr)) return cudaErrorInvalidValue;
-  const Args a{p1, p2, lengths2, lb_d, lb_i, rows, cand_ids, starts, counts,
-               ub, gate, N, P1, P2, D, K, out_d, out_i, cand_ids != nullptr,
-               counts != nullptr};
+  const Args a{p1, p2, lengths2, lb_d, lb_i, rows, counts, ub, gate,
+               N, P1, P2, D, K, out_d, out_i, counts != nullptr};
   return dispatch(a, norm, q, threads, tile, static_cast<cudaStream_t>(stream),
                   nullptr);
 }
 
-// How many blocks of the (K, D, norm, q, carried, count) instance fit on
-// one SM of the current device at this block size and tile (0 if none).
-// Returns a cudaError_t.
+// How many blocks of the (K, D, norm, q, count) instance fit on one SM of
+// the current device at this block size and tile (0 if none). Returns a
+// cudaError_t.
 extern "C" int knn_resident_blocks(int K, int D, int norm, int q, int threads,
-                                   int tile, int carried, int count,
-                                   int* blocks) {
+                                   int tile, int count, int* blocks) {
   *blocks = 0;
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-               nullptr, nullptr, nullptr, nullptr, 1, 1, 1, D, K, nullptr,
-               nullptr, carried != 0, count != 0};
+               nullptr, nullptr, 1, 1, 1, D, K, nullptr, nullptr, count != 0};
   return dispatch(a, norm, q, threads, tile, nullptr, blocks);
 }
 
 // The screen over queries [q0, q0 + nq) of every cloud, in the kernel's query
 // order (rows, as for knn_topk, or null): seeds (N, P1) float32 in that
-// order; cand_ids (N, P2) int32 original indices (p2 reordered) or null;
-// boxes (N, ceil(P2 / 128), 8) float32, the segment boxes of knn_screen_order
-// (D = 3; p2 is then its (N, P2, 4) points and cand_ids is unused), or null:
+// order; boxes (N, ceil(P2 / 128), 8) float32, the segment boxes of
+// knn_screen_order (D = 3; p2 is then its (N, P2, 4) points), or null:
 // every candidate is scanned; lists (N, nq, cap) uint64 and counts (N, nq)
 // int32 written; seg_counts (N, blocks, 2) uint64 zeroed, or null: the
 // segments each block scanned and skipped are added. q queries a thread (1
@@ -1638,13 +1552,13 @@ extern "C" int knn_resident_blocks(int K, int D, int norm, int q, int threads,
 // ceil(nq / (32 * q)) (the block's warps share 32 * q queries). Returns the
 // launch's cudaError_t.
 extern "C" int knn_screen(const float* p1, const float* p2, const int64_t* lengths2,
-                          const int* rows, const int* cand_ids, const float* seeds,
-                          const float* boxes, int N, int P1, int P2, int D, int q0,
+                          const int* rows, const float* seeds, const float* boxes,
+                          int N, int P1, int P2, int D, int q0,
                           int nq, int cap, int norm, int q, int threads, int tile,
                           unsigned long long* lists, int* counts,
                           unsigned long long* seg_counts, void* stream) {
   if (N <= 0 || nq <= 0) return cudaSuccess;
-  const ScreenArgs a{p1, p2, lengths2, rows, cand_ids, seeds, boxes, N, P1, P2, D,
+  const ScreenArgs a{p1, p2, lengths2, rows, seeds, boxes, N, P1, P2, D,
                      q0, nq, cap, lists, counts, seg_counts};
   return screen_dispatch(a, norm, q, threads, tile,
                          static_cast<cudaStream_t>(stream), nullptr);
@@ -1655,7 +1569,7 @@ extern "C" int knn_screen(const float* p1, const float* p2, const int64_t* lengt
 extern "C" int knn_screen_resident(int D, int norm, int q, int threads, int tile,
                                    int* blocks) {
   *blocks = 0;
-  const ScreenArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+  const ScreenArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                      1, 1, 1, D, 0, 1, 1, nullptr, nullptr, nullptr};
   return screen_dispatch(a, norm, q, threads, tile, nullptr, blocks);
 }
@@ -1685,19 +1599,18 @@ extern "C" int knn_select(const unsigned long long* lists, const int* counts,
   return cudaGetLastError();
 }
 
-// The screen's order of p2 (N, P2, 3) float32 (lengths2 (N,) int64; ids
-// (N, P2) int32 original indices of p2's rows, or null): out_p (N, P2, 4)
-// (x, y, z, the index's bits) and boxes (N, ceil(P2 / 128), 8) float32 written
-// (knn_screen_order_kernel); keys (2, N, P2) uint64 scratch; bits the cell
-// code's bits an axis (1 to 10). One launch of N clusters of 8 blocks.
-// Returns the launch's cudaError_t.
-extern "C" int knn_screen_order(const float* p2, const int64_t* lengths2, const int* ids,
-                                int N, int P2, int bits, unsigned long long* keys,
+// The screen's order of p2 (N, P2, 3) float32 (lengths2 (N,) int64): out_p
+// (N, P2, 4) (x, y, z, the bits of the row's index) and boxes
+// (N, ceil(P2 / 128), 8) float32 written (knn_screen_order_kernel); keys
+// (2, N, P2) uint64 scratch; bits the cell code's bits an axis (1 to 10).
+// One launch of N clusters of 8 blocks. Returns the launch's cudaError_t.
+extern "C" int knn_screen_order(const float* p2, const int64_t* lengths2, int N,
+                                int P2, int bits, unsigned long long* keys,
                                 float* out_p, float* boxes, void* stream) {
   if (N <= 0 || P2 <= 0) return cudaSuccess;
   if (N > 65535 || bits < 1 || bits > 10) return cudaErrorInvalidValue;
   knn_screen_order_kernel<<<dim3(kOrderBlocks, N), kOrderThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-      p2, lengths2, ids, P2, bits, keys, out_p, boxes);
+      p2, lengths2, P2, bits, keys, out_p, boxes);
   return cudaGetLastError();
 }

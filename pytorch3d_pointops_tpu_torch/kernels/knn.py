@@ -19,16 +19,13 @@ count and how many blocks of the kernel fit on an SM;
 ``python -m pytorch3d_pointops_tpu_torch.tune_knn`` times every feasible
 plan on the card.
 
-Morton sorting, the JAX kernel's ``sort_queries`` and ``sort_candidates``
+Query sorting, the JAX kernel's ``sort_queries``
 (``kernels/spatial_sort.py``): the kernel takes the queries in Morton order
-and its outputs are put back in row order, which changes no bit of them;
-candidates are sorted once for every chained round and carry their
-original indices into the kernel, which scans each block's tiles from the
-one nearest its queries and breaks ties by original index, so the results
-are the same again. ``None`` means the measured auto gate (``sort_gates``); ``True`` on
-CPU tensors runs the same permutations around the plain version, whose
-ties are then broken by the carried indices too. ``instrument=True`` also
-returns the kernel's per-block counters (``COUNTERS``).
+and its outputs are put back in row order, which changes no bit of them.
+``None`` means the measured auto gate (``sort_gates``); ``True`` on CPU
+tensors runs the same permutation around the plain version.
+``instrument=True`` also returns the kernel's per-block counters
+(``COUNTERS``).
 
 Kth-bound seeding, the JAX kernel's ``sample_bound`` (``knn_pallas.py``
 ``_bigk_round_bounds``, ``_repair_sentinels``): one KNN over a strided
@@ -40,10 +37,10 @@ too tight: that is detected on the device, and every round reruns
 unseeded, gated on the detection (per-query flags), so there is no host sync and the
 result is the unseeded one bit for bit. Slots past ``lengths2`` then hold
 (inf, 0), as unseeded (JAX's raw output keeps the seed value there). The
-order is: one query sort and one candidate sort, then the sample pass in
-the queries' order, the seeded rounds and the repair. ``None`` means the
-measured gate (``seed_gate``); ``ub=`` seeds one round from a bound the
-caller gives and returns the raw state, ``SENT`` slots included.
+order is: the query sort, then the sample pass in the queries' order, the
+seeded rounds and the repair. ``None`` means the measured gate
+(``seed_gate``); ``ub=`` seeds one round from a bound the caller gives and
+returns the raw state, ``SENT`` slots included.
 
 Screen and select (a seeded call of more than one round, K > 64; no TPU
 counterpart): the sample pass gives one bound a query, that of the call's
@@ -273,13 +270,9 @@ def pairwise_dist(x: torch.Tensor, y: torch.Tensor, norm: int) -> torch.Tensor:
     return d
 
 
-def _topk_rows(d: torch.Tensor, idx: torch.Tensor, K: int, lex: bool = False):
-    """First K entries of each row in (value, index) order. Without ``lex``,
-    ``idx`` must ascend along each row among equal values (a stable sort
-    keeps it); with it, the rows are put in index order first."""
-    if lex:
-        by_idx = torch.argsort(idx, dim=-1, stable=True)
-        d, idx = torch.gather(d, -1, by_idx), torch.gather(idx, -1, by_idx)
+def _topk_rows(d: torch.Tensor, idx: torch.Tensor, K: int):
+    """First K entries of each row in (value, index) order; ``idx`` must
+    ascend along each row among equal values (a stable sort keeps it)."""
     vals, order = torch.sort(d, dim=-1, stable=True)
     return vals[..., :K], torch.gather(idx, -1, order[..., :K])
 
@@ -301,42 +294,38 @@ def _seed_state(seed, K):
     return vals, idx
 
 
-def _keep(d, pos, j, len2, lb):
-    """Where a candidate may enter a round: its position below lengths2
-    and, with ``lb`` = (values, indices) broadcastable against d, its
-    (value, index) strictly above that lower bound."""
-    keep = pos < len2
+def _keep(d, j, len2, lb):
+    """Where candidate j may enter a round: j below lengths2 and, with
+    ``lb`` = (values, indices) broadcastable against d, its (value, index)
+    strictly above that lower bound."""
+    keep = j < len2
     if lb is not None:
         keep = keep & ((d > lb[0]) | ((d == lb[0]) & (j > lb[1])))
     return keep
 
 
-def _knn_forward_full(p1, p2, lengths2, K, norm, ids=None, lb=None, seed=None):
+def _knn_forward_full(p1, p2, lengths2, K, norm, lb=None, seed=None):
     """Single-shot distance matrix and a stable sort (small problems).
-    ``ids``: each p2 row's original index (int64), when p2 is reordered;
     ``lb``/``seed``: see ``_plain_round``."""
     P2 = p2.shape[1]
     d = pairwise_dist(p1, p2, norm)
-    j = torch.arange(P2, device=p1.device)
-    jj = j[None, None, :] if ids is None else ids[:, None, :]
+    j = torch.arange(P2, device=p1.device)[None, None, :]
     lbx = None if lb is None else (lb[0][..., None], lb[1][..., None])
-    d = torch.where(_keep(d, j[None, None, :], jj, lengths2[:, None, None], lbx),
-                    d, _INF)
-    idx = jj.expand_as(d)
+    d = torch.where(_keep(d, j, lengths2[:, None, None], lbx), d, _INF)
+    idx = j.expand_as(d)
     if seed is not None:
         sd, si = _seed_state(seed, K)
         d, idx = torch.cat([sd, d], dim=-1), torch.cat([si, idx], dim=-1)
-    vals, idx = _topk_rows(d, idx, min(K, d.shape[-1]), lex=ids is not None)
+    vals, idx = _topk_rows(d, idx, min(K, d.shape[-1]))
     if K > vals.shape[-1]:
         vals = torch.nn.functional.pad(vals, (0, K - vals.shape[-1]), value=_INF)
         idx = torch.nn.functional.pad(idx, (0, K - idx.shape[-1]))
     return vals, idx
 
 
-def _knn_single_tiled(x, y, len2, K, norm, tile_p2, ids=None, lb=None, seed=None):
+def _knn_single_tiled(x, y, len2, K, norm, tile_p2, lb=None, seed=None):
     """Streaming KNN for one cloud: scan tiles of y and merge a running
-    top-K. Carried entries go first, so ties keep the earlier index (with
-    ``ids``, y's original indices, ties are broken by those). ``lb``
+    top-K. Carried entries go first, so ties keep the earlier index. ``lb``
     (values, indices) (C1,) and ``seed`` (C1,): see ``_plain_round``."""
     C1 = x.shape[0]
     if seed is None:
@@ -347,20 +336,18 @@ def _knn_single_tiled(x, y, len2, K, norm, tile_p2, ids=None, lb=None, seed=None
     lbx = None if lb is None else (lb[0][:, None], lb[1][:, None])
     for off in range(0, y.shape[0], tile_p2):
         yt = y[off : off + tile_p2]
-        pos = torch.arange(off, off + yt.shape[0], device=x.device)
-        j = pos if ids is None else ids[off : off + yt.shape[0]]
+        j = torch.arange(off, off + yt.shape[0], device=x.device)
         d = pairwise_dist(x, yt, norm)
-        d = torch.where(_keep(d, pos[None, :], j[None, :], len2, lbx), d, _INF)
+        d = torch.where(_keep(d, j[None, :], len2, lbx), d, _INF)
         cd, ci = _topk_rows(
             torch.cat([cd, d], dim=1),
             torch.cat([ci, j.expand(C1, -1)], dim=1),
             K,
-            lex=ids is not None,
         )
     return cd, ci
 
 
-def _knn_forward_tiled(p1, p2, lengths2, K, norm, ids=None, lb=None, seed=None):
+def _knn_forward_tiled(p1, p2, lengths2, K, norm, lb=None, seed=None):
     """Tiled streaming forward for large problems: P1 in chunks, P2 in
     tiles, one cloud at a time."""
     N, P1, _ = p1.shape
@@ -371,55 +358,49 @@ def _knn_forward_tiled(p1, p2, lengths2, K, norm, ids=None, lb=None, seed=None):
             rows = slice(a, a + _TILE_P1)
             vals[n, rows], idx[n, rows] = _knn_single_tiled(
                 p1[n, rows], p2[n], lengths2[n], K, norm, _TILE_P2,
-                None if ids is None else ids[n],
                 None if lb is None else (lb[0][n, rows], lb[1][n, rows]),
                 None if seed is None else seed[n, rows],
             )
     return vals, idx
 
 
-def _plain_round(p1, p2, lengths2, K, norm, ids=None, lb=None, seed=None):
+def _plain_round(p1, p2, lengths2, K, norm, lb=None, seed=None):
     """One round of the kernel in plain PyTorch. ``lb`` = (values, int64
     indices), each (N, P1): a chained round's exclusive (value, index)
     lower bound. ``seed`` (N, P1): the state starts at K entries (seed,
     ``SENT``) where it is finite; these sort before candidates of equal
-    value, and after them with ``ids`` (the kernel's carried rule: SENT is
-    the largest index). An entry of value +inf takes index 0, as the
-    kernel never admits one."""
+    value. An entry of value +inf takes index 0, as the kernel never admits
+    one."""
     N, P1, _ = p1.shape
     if N * P1 * p2.shape[1] <= _FULL_MATRIX_MAX_ELEMS:
-        vals, idx = _knn_forward_full(p1, p2, lengths2, K, norm, ids, lb, seed)
+        vals, idx = _knn_forward_full(p1, p2, lengths2, K, norm, lb, seed)
     else:
-        vals, idx = _knn_forward_tiled(p1, p2, lengths2, K, norm, ids, lb, seed)
+        vals, idx = _knn_forward_tiled(p1, p2, lengths2, K, norm, lb, seed)
     return vals, torch.where(vals == _INF, 0, idx)
 
 
-def knn_topk_plain(p1, p2, lengths2, K: int, norm: int, cand_ids=None, ub=None):
+def knn_topk_plain(p1, p2, lengths2, K: int, norm: int, ub=None):
     """Plain PyTorch twin of the kernel, on any device: the full distance
-    matrix for small problems, the tiled stream for large ones. With
-    ``cand_ids`` (N, P2), p2 is reordered (its valid rows first) and
-    ``cand_ids`` holds each row's original index: the indices returned are
-    those, ties broken by them, as the kernel's carried instances do.
-    ``ub`` (N, P1) float32: the raw seeded round of ``knn_topk(ub=)``,
-    slots not filled below ``seed_of(ub)`` left at (that seed, ``SENT``)."""
-    ids = None if cand_ids is None else cand_ids.to(torch.int64)
-    return _plain_round(p1, p2, lengths2, K, norm, ids, None,
+    matrix for small problems, the tiled stream for large ones. ``ub``
+    (N, P1) float32: the raw seeded round of ``knn_topk(ub=)``, slots not
+    filled below ``seed_of(ub)`` left at (that seed, ``SENT``)."""
+    return _plain_round(p1, p2, lengths2, K, norm, None,
                         None if ub is None else seed_of(ub))
 
 
 @functools.cache
 def _lib():
     lib = _build.load("knn")
-    lib.knn_topk.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
+    lib.knn_topk.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
-    lib.knn_resident_blocks.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.knn_screen.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [
+    lib.knn_resident_blocks.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.knn_screen.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [
         ctypes.c_void_p] * 4
     lib.knn_screen_resident.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.knn_select.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p] * 4
-    lib.knn_screen_order.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+    lib.knn_screen_order.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p] * 4
     for fn in (lib.knn_topk, lib.knn_resident_blocks, lib.knn_screen,
                lib.knn_screen_resident, lib.knn_select, lib.knn_screen_order):
@@ -427,31 +408,21 @@ def _lib():
     return lib
 
 
-def _carried_instance(D: int, K: int, norm: int) -> bool:
-    """Whether ``csrc/knn.cu`` has candidate-sorted (carried) instances for
-    D, K and norm (its pick_mode): D = 3 and a K bucket of 8 or more, at
-    norm 1 not the 32-key bucket (17 <= K <= 32)."""
-    return D == 3 and _bucket(K) >= 8 and (norm == 2 or _bucket(K) != 32)
-
-
 def _counted_instance(D: int, K: int, norm: int) -> bool:
-    """Whether it has counting instances: D = 3, norm 2, a single round of
-    a K bucket of 8 or more."""
-    return _carried_instance(D, K, norm) and norm == 2 and K <= ROUND_K
+    """Whether ``csrc/knn.cu`` has counting instances for D, K and norm (its
+    pick_mode): D = 3, norm 2, a single round of a K bucket of 8 or more."""
+    return D == 3 and norm == 2 and _bucket(K) >= 8 and K <= ROUND_K
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(device: int, K: int, D: int, norm: int, plan: Plan,
-              carried: bool = False) -> int:
-    """Blocks of the kernel instance for (K, D, norm, plan, carried) that
-    fit on one SM of CUDA device ``device`` (registers, shared memory,
-    threads)."""
+def _resident(device: int, K: int, D: int, norm: int, plan: Plan) -> int:
+    """Blocks of the kernel instance for (K, D, norm, plan) that fit on one
+    SM of CUDA device ``device`` (registers, shared memory, threads)."""
     blocks = ctypes.c_int()
     with torch.cuda.device(device):
         _build.check(
             _lib().knn_resident_blocks(K, D, norm, plan.queries, plan.threads,
-                                       plan.tile, int(carried), 0,
-                                       ctypes.byref(blocks)),
+                                       plan.tile, 0, ctypes.byref(blocks)),
             "knn_resident_blocks",
         )
     return blocks.value
@@ -463,9 +434,9 @@ def _sm_count(device: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _card_plan(device: int, N, P1, P2, D, K, norm, carried=False) -> Plan:
+def _card_plan(device: int, N, P1, P2, D, K, norm) -> Plan:
     return _launch_plan(N, P1, P2, D, K, _sm_count(device),
-                        lambda plan: _resident(device, K, D, norm, plan, carried))
+                        lambda plan: _resident(device, K, D, norm, plan))
 
 
 @functools.lru_cache(maxsize=None)
@@ -504,18 +475,16 @@ def screen_plans(p1, p2, norm: int, chunk: int | None = None
                            _screen_queries(D)))
 
 
-def card_plans(p1, p2, K: int, norm: int, carried: bool = False
-               ) -> tuple[Plan, list[Plan]]:
+def card_plans(p1, p2, K: int, norm: int) -> tuple[Plan, list[Plan]]:
     """(the plan ``knn_topk_cuda`` picks, every feasible plan) for one round
-    of these CUDA inputs on their card, for the instances that take p2 in
-    index order or, with ``carried``, sorted."""
+    of these CUDA inputs on their card."""
     N, P1, D = p1.shape
     P2 = p2.shape[1]
     k = min(K, ROUND_K)
     dev = p1.device.index
-    return (_card_plan(dev, N, P1, P2, D, k, norm, carried),
+    return (_card_plan(dev, N, P1, P2, D, k, norm),
             feasible_plans(N, P1, P2, D, k,
-                           lambda plan: _resident(dev, k, D, norm, plan, carried)))
+                           lambda plan: _resident(dev, k, D, norm, plan)))
 
 
 def _check_inputs(p1, p2, lengths2, K, norm):
@@ -531,17 +500,15 @@ def _check_inputs(p1, p2, lengths2, K, norm):
         raise ValueError("lengths2 must be of shape (N,)")
 
 
-def sort_gates(pairs: int, K: int, on_cuda: bool, sort_queries=None,
-               sort_candidates=None) -> tuple[bool, bool]:
-    """(sort the queries, sort the candidates) for a call over ``pairs`` =
-    N * P1 * P2 query-candidate pairs: an explicit choice stands; ``None``
-    takes the auto gate, off on CPU tensors: the queries where the card
-    measured the sort faster (``SORT_QUERIES_MIN_PAIRS``), the candidates
-    never (slower at every shape the card measured, PERF.md)."""
+def sort_gates(pairs: int, K: int, on_cuda: bool, sort_queries=None) -> bool:
+    """Whether a call over ``pairs`` = N * P1 * P2 query-candidate pairs
+    sorts its queries: an explicit choice stands; ``None`` takes the auto
+    gate, off on CPU tensors: where the card measured the sort faster
+    (``SORT_QUERIES_MIN_PAIRS``)."""
     if sort_queries is None:
         least = SORT_QUERIES_MIN_PAIRS.get(_bucket(K))
         sort_queries = on_cuda and least is not None and pairs >= least
-    return bool(sort_queries), bool(sort_candidates)
+    return bool(sort_queries)
 
 
 def _default_sample_s(P2: int) -> int:
@@ -690,59 +657,6 @@ def kth_bounds(p1, p2, lengths2, kqs, norm: int, s: int, rows=None):
     return [taus[..., r].contiguous() for r in range(len(kqs))]
 
 
-class CandidateOrder(NamedTuple):
-    """p2 in Morton order on the joint box of p1 and p2's valid rows, rows
-    past lengths2 last: ``points`` (N, P2, D), ``ids`` (N, P2) int32 each
-    row's original index, ``codes`` (N, P2) int32 its code (ascending),
-    ``lo``/``hi`` (N, 1, 3) the box."""
-
-    points: torch.Tensor
-    ids: torch.Tensor
-    codes: torch.Tensor
-    lo: torch.Tensor
-    hi: torch.Tensor
-
-
-def candidate_order(p1, p2, lengths2) -> CandidateOrder:
-    """Sort the candidates once, for every chained round. Valid rows take
-    their Morton code on the joint box, rows past ``lengths2`` ``PAD_CODE``,
-    above every code, so that they sort past the valid ones and a
-    truncation by position still drops them."""
-    N, P2, D = p2.shape
-    valid = torch.arange(P2, device=p2.device)[None, :] < lengths2[:, None]
-    xyz1, xyz2 = p1[..., :3], p2[..., :3]
-    lo = torch.minimum(xyz1.amin(dim=1, keepdim=True), torch.where(
-        valid[..., None], xyz2, _INF).amin(dim=1, keepdim=True))
-    hi = torch.maximum(xyz1.amax(dim=1, keepdim=True), torch.where(
-        valid[..., None], xyz2, -_INF).amax(dim=1, keepdim=True))
-    codes = torch.where(valid, _ss.morton_code(p2, lo, hi), _ss.PAD_CODE)
-    codes, order = torch.sort(codes, dim=1, stable=True)
-    points = torch.gather(p2, 1, order[..., None].expand(N, P2, D))
-    return CandidateOrder(points, order.to(torch.int32), codes, lo, hi)
-
-
-def scan_starts(p1, order: CandidateOrder, block: int, tile: int,
-                rows=None) -> torch.Tensor:
-    """(N, ceil(P1 / block)) int32: for each block of ``block`` consecutive
-    queries (in the order ``rows``, if given), the tile of sorted candidates
-    to scan first, the one whose first code is the last at or below the
-    Morton code of the block's median query (knn_pallas.py's per-block start
-    tiles). A poor start costs time, never results: every tile is still
-    scanned once."""
-    N, P1, _ = p1.shape
-    P2 = order.codes.shape[1]
-    dev = p1.device
-    n_tiles = max(1, -(-P2 // tile))
-    bpos = (torch.arange(n_tiles, device=dev) * tile).clamp(max=P2 - 1)
-    bounds = order.codes[:, bpos].contiguous()
-    mpos = (torch.arange(-(-P1 // block), device=dev) * block + block // 2).clamp(
-        max=P1 - 1)
-    med = p1[:, mpos] if rows is None else _gather_rows(p1, rows[:, mpos])
-    med = _ss.morton_code(med, order.lo, order.hi).contiguous()
-    starts = torch.searchsorted(bounds, med, right=True) - 1
-    return starts.clamp(0, n_tiles - 1).to(torch.int32).contiguous()
-
-
 def _gather_rows(x, rows):
     """x[n, rows[n]] for (N, P, ...) x and (N, R) rows."""
     return torch.gather(x, 1, rows.reshape(*rows.shape, *[1] * (x.dim() - 2))
@@ -756,18 +670,14 @@ def _unpermute(x, rows):
     return torch.empty_like(x).scatter_(1, index, x)
 
 
-def _with_sorting(p1, p2, lengths2, sort_queries, sort_candidates, topk):
-    """``topk(p1, p2, order, rows)`` with the candidates sorted (``order`` a
-    ``CandidateOrder`` whose points are p2, else None) and the queries'
-    Morton order (``rows``, (N, P1) int64, else None), as asked."""
-    if p1.shape[1] == 0 or p2.shape[1] == 0:  # nothing to order
-        return topk(p1, p2, None, None)
-    order = rows = None
-    if sort_candidates or sort_queries:
-        with tracing.span("knn.sort"):
-            order = candidate_order(p1, p2, lengths2) if sort_candidates else None
-            rows = _ss.morton_order(p1) if sort_queries else None
-    return topk(p1, p2 if order is None else order.points, order, rows)
+def _with_sorting(p1, p2, sort_queries, topk):
+    """``topk(rows)`` with the queries' Morton order (``rows``, (N, P1)
+    int64) where asked, else None."""
+    if not sort_queries or p1.shape[1] == 0 or p2.shape[1] == 0:  # nothing to order
+        return topk(None)
+    with tracing.span("knn.sort"):
+        rows = _ss.morton_order(p1)
+    return topk(rows)
 
 
 def _chain(launch, K, P2, seeds=None, gate=None, out=None):
@@ -860,14 +770,13 @@ def _screened(screen, launch, K, P2, seed, cap):
         return _join(ds, idxs, K)
 
 
-def _screener(p1, p2, lengths2, norm, rows=None, cand_ids=None, plan=None,
-              stats=None):
+def _screener(p1, p2, lengths2, norm, rows=None, plan=None, stats=None):
     """``screen(K, seed, cap, out)`` for ``_screened`` on CUDA tensors: the
     screen and select kernels of ``csrc/knn.cu`` over chunks of queries
     (``_screen_chunk``), under ``plan`` (default: ``_screen_card_plan``).
-    ``rows`` and ``cand_ids`` (int32): as for ``_launcher``. Where
-    ``_screen_skips``, the screen runs on ``screen_order_cuda``'s order of
-    p2, built once a call, and skips the segments no query needs.
+    ``rows`` (int32): as for ``_launcher``. Where ``_screen_skips``, the
+    screen runs on ``screen_order_cuda``'s order of p2, built once a call,
+    and skips the segments no query needs.
     ``stats``: a list to which each call appends {"cap", "counts", "flags",
     "scanned"} (the lists' whole lengths (N, P1) and the flags, kernel
     order; the share of (32 q queries, segment) pairs the screen scanned, a
@@ -885,9 +794,9 @@ def _screener(p1, p2, lengths2, norm, rows=None, cand_ids=None, plan=None,
         stream = _build.stream_ptr(dev)
         chunk = _screen_chunk(N, P1, cap)
         q, threads, tile = plan or _screen_card_plan(dev.index, N, chunk, P2, D, norm)
-        cands, ids, boxes = p2, cand_ids, None
+        cands, boxes = p2, None
         if _screen_skips(D):
-            (cands, boxes), ids = screen_order_cuda(p2, lengths2, cand_ids), None
+            cands, boxes = screen_order_cuda(p2, lengths2)
         flags = torch.empty((N, P1), dtype=torch.int32, device=dev)
         lists = torch.empty((N, chunk, cap), dtype=torch.int64, device=dev)
         counts = torch.empty((N, chunk), dtype=torch.int32, device=dev)
@@ -898,7 +807,7 @@ def _screener(p1, p2, lengths2, norm, rows=None, cand_ids=None, plan=None,
             nq = min(chunk, P1 - q0)
             _build.check(
                 lib.knn_screen(p1.data_ptr(), cands.data_ptr(), lengths2.data_ptr(),
-                               ptr(rows), ptr(ids), seed.data_ptr(), ptr(boxes), N, P1,
+                               ptr(rows), seed.data_ptr(), ptr(boxes), N, P1,
                                P2, D, q0, nq, cap, norm, q, threads, tile,
                                lists.data_ptr(), counts.data_ptr(), ptr(segs), stream),
                 "knn_screen",
@@ -956,7 +865,7 @@ def _screen_skips(D: int) -> bool:
     return D == 3
 
 
-def screen_order_plain(p2, lengths2, ids=None):
+def screen_order_plain(p2, lengths2):
     """The screen's order of the candidates (D = 3) in plain PyTorch, the
     twin of ``screen_order_cuda``: each cloud's first ``lengths2`` rows
     sorted by cell code, ties in row order, the rows past them after, in
@@ -965,10 +874,9 @@ def screen_order_plain(p2, lengths2, ids=None):
     valid rows, NaN coordinates ignored, has no extent or the ratio is NaN),
     its bits interleaved x, y, z from the lowest. Returns (points (N, P2, 4)
     float32 in that order, each x, y, z and the bits of its original index,
-    int32, or of ``ids[n, row]`` where given (``order_ids`` reads them);
-    boxes (N, ceil(P2 / 128), 8) float32, each segment's lo (3), 0, hi (3),
-    0 over its valid rows, NaN coordinates ignored, +inf / -inf where it has
-    none)."""
+    int32 (``order_ids`` reads them); boxes (N, ceil(P2 / 128), 8) float32,
+    each segment's lo (3), 0, hi (3), 0 over its valid rows, NaN coordinates
+    ignored, +inf / -inf where it has none)."""
     N, P2, _ = p2.shape
     dev = p2.device
     bits = _order_bits(P2)
@@ -987,7 +895,6 @@ def screen_order_plain(p2, lengths2, ids=None):
             code |= ((cell[..., a] >> b) & 1) << (3 * b + a)
     order = torch.sort(torch.where(valid, code, 1 << 31), dim=1, stable=True).indices
     points = torch.gather(p2, 1, order[..., None].expand(N, P2, 3))
-    j = order if ids is None else torch.gather(ids.to(torch.int64), 1, order)
     nseg = -(-P2 // _SEGMENT)
     pad = (0, 0, 0, nseg * _SEGMENT - P2)
     live = torch.nn.functional.pad(valid[..., None] & ~torch.isnan(points), pad)
@@ -996,7 +903,7 @@ def screen_order_plain(p2, lengths2, ids=None):
     slo = torch.where(live, segs, _INF).amin(dim=2)
     shi = torch.where(live, segs, -_INF).amax(dim=2)
     zero = slo.new_zeros((N, nseg, 1))
-    j = j.to(torch.int32).view(torch.float32)[..., None]
+    j = order.to(torch.int32).view(torch.float32)[..., None]
     return torch.cat([points, j], dim=-1), torch.cat([slo, zero, shi, zero], dim=-1)
 
 
@@ -1006,19 +913,18 @@ def order_ids(points):
     return points.view(torch.int32)[..., 3]
 
 
-def screen_order_cuda(p2, lengths2, ids=None):
+def screen_order_cuda(p2, lengths2):
     """``screen_order_plain`` by ``csrc/knn.cu`` ``knn_screen_order_kernel``
-    on CUDA tensors (D = 3; ``ids`` int32): one launch, a cluster of blocks
-    a cloud. The points are a view of a buffer with ``_GROUP_SLOTS`` rows
-    more, which the screen's prefetch may read past the last cloud."""
+    on CUDA tensors (D = 3): one launch, a cluster of blocks a cloud. The
+    points are a view of a buffer with ``_GROUP_SLOTS`` rows more, which
+    the screen's prefetch may read past the last cloud."""
     N, P2, _ = p2.shape
     dev = p2.device
     points = torch.empty((N * P2 + _GROUP_SLOTS, 4), dtype=torch.float32, device=dev)
     boxes = torch.empty((N, -(-P2 // _SEGMENT), 8), dtype=torch.float32, device=dev)
     keys = torch.empty((2, N, P2), dtype=torch.int64, device=dev)
     _build.check(
-        _lib().knn_screen_order(p2.data_ptr(), lengths2.data_ptr(),
-                                None if ids is None else ids.data_ptr(), N, P2,
+        _lib().knn_screen_order(p2.data_ptr(), lengths2.data_ptr(), N, P2,
                                 _order_bits(P2), keys.data_ptr(), points.data_ptr(),
                                 boxes.data_ptr(), _build.stream_ptr(dev)),
         "knn_screen_order",
@@ -1044,24 +950,23 @@ def segment_bound(q, lo, hi, norm: int):
     return out
 
 
-def _plain_screener(p1, p2, lengths2, norm, ids=None):
+def _plain_screener(p1, p2, lengths2, norm):
     """``screen`` for ``_screened`` on the plain twin, queries in their
     given order: the distances, ``d < seed``, each query's count and flag,
-    and the K smallest kept candidates by their ``screen_keys`` (index:
-    ``ids``, p2's original indices, where p2 is reordered) written to every
-    row's slots; a flagged row's are then overwritten by the repair. Where
-    ``_screen_skips``, on ``screen_order_plain``'s order, each candidate of
-    a segment whose ``segment_bound`` is not below the query's seed left
-    out (the kernel's skip, per query)."""
+    and the K smallest kept candidates by their ``screen_keys`` written to
+    every row's slots; a flagged row's are then overwritten by the repair.
+    Where ``_screen_skips``, on ``screen_order_plain``'s order, each
+    candidate of a segment whose ``segment_bound`` is not below the query's
+    seed left out (the kernel's skip, per query)."""
     N, P1, D = p1.shape
     P2 = p2.shape[1]
     pos = torch.arange(P2, device=p1.device)
     len2 = lengths2.clamp(0, P2)
 
     def screen(K, seed, cap, out):
-        cands, j, boxes = p2, (pos.expand(N, P2) if ids is None else ids), None
+        cands, j, boxes = p2, pos.expand(N, P2), None
         if _screen_skips(D):
-            cands, boxes = screen_order_plain(p2, lengths2, ids)
+            cands, boxes = screen_order_plain(p2, lengths2)
             cands, j = cands[..., :3], order_ids(cands).to(torch.int64)
         flags = torch.empty((N, P1), dtype=torch.int32, device=p1.device)
         step = max(1, _FULL_MATRIX_MAX_ELEMS // max(1, N * P2))
@@ -1091,12 +996,11 @@ def _plain_screener(p1, p2, lengths2, norm, ids=None):
     return screen
 
 
-def _launcher(p1, p2, lengths2, norm, plan: Plan, rows=None, cand_ids=None,
-              starts=None, counts=None):
+def _launcher(p1, p2, lengths2, norm, plan: Plan, rows=None, counts=None):
     """``launch(k, lb, seed, gate, out)`` for ``_chain``: one launch of
     ``csrc/knn.cu``. ``rows`` (int32): the order the kernel takes the
-    queries in, and its outputs' row order; ``cand_ids`` and ``starts``
-    (int32): p2's original indices and each block's first tile."""
+    queries in, and its outputs' row order; ``counts``: the counting
+    instances' (N, blocks, 5) counters, or None."""
     N, P1, D = p1.shape
     P2 = p2.shape[1]
     dev = p1.device
@@ -1113,9 +1017,8 @@ def _launcher(p1, p2, lengths2, norm, plan: Plan, rows=None, cand_ids=None,
         lb_d, lb_i = (None, None) if lb is None else lb
         _build.check(
             fn(p1.data_ptr(), p2.data_ptr(), lengths2.data_ptr(), ptr(lb_d),
-               ptr(lb_i), ptr(rows), ptr(cand_ids), ptr(starts), ptr(counts),
-               ptr(seed), ptr(gate), N, P1, P2, D, k, norm, *plan,
-               out[0].data_ptr(), out[1].data_ptr(), stream),
+               ptr(lb_i), ptr(rows), ptr(counts), ptr(seed), ptr(gate), N, P1, P2,
+               D, k, norm, *plan, out[0].data_ptr(), out[1].data_ptr(), stream),
             "knn_topk",
         )
         tracing.launch("knn_topk_cuda")
@@ -1125,16 +1028,16 @@ def _launcher(p1, p2, lengths2, norm, plan: Plan, rows=None, cand_ids=None,
 
 
 def _launch_rounds(p1, p2, lengths2, K, norm, plan: Plan, rows=None,
-                   cand_ids=None, starts=None, counts=None, seeds=None):
+                   counts=None, seeds=None):
     """The kernel's launches for one call, joined: one round, or ceil(K/64)
     chained 64-key rounds behind each query's (value, index) lower bound;
     ``seeds``: one (N, P1) seed a round (``seed_of``), in the kernel's
     query order, or None. See ``_launcher``."""
-    launch = _launcher(p1, p2, lengths2, norm, plan, rows, cand_ids, starts, counts)
+    launch = _launcher(p1, p2, lengths2, norm, plan, rows, counts)
     return _join(*_chain(launch, K, p2.shape[1], seeds), K)
 
 
-def _plain_launcher(p1, p2, lengths2, norm, ids=None):
+def _plain_launcher(p1, p2, lengths2, norm):
     """``launch`` for ``_chain`` on the plain twin, queries in their given
     order; a gate's flags are read on the host (these are not CUDA tensors),
     and only the flagged queries' outputs are overwritten."""
@@ -1143,7 +1046,7 @@ def _plain_launcher(p1, p2, lengths2, norm, ids=None):
             tracing.sync("knn.plain_gate")
             if not bool(gate.any()):
                 return out
-        d, i = _plain_round(p1, p2, lengths2, k, norm, ids, lb, seed)
+        d, i = _plain_round(p1, p2, lengths2, k, norm, lb, seed)
         if out is None:
             return d, i
         if gate is not None:
@@ -1156,10 +1059,9 @@ def _plain_launcher(p1, p2, lengths2, norm, ids=None):
     return launch
 
 
-def _topk(p1, p2, lengths2, K, norm, make_launchers, sort_queries, sort_candidates,
-          s=None, ub=None):
-    """One call on either device: the sorts asked for, then the rounds of
-    ``make_launchers(q, ref, order, rows)`` = (launch, screen), seeded from
+def _topk(p1, p2, lengths2, K, norm, make_launchers, sort_queries, s=None, ub=None):
+    """One call on either device: the query sort if asked for, then the
+    rounds of ``make_launchers(rows)`` = (launch, screen), seeded from
     bounds on an ``s``-point sample if ``s`` is given (more than one round
     and K <= ``_SELECT_MAX_K``: screen and select at the last quantile's
     bound, then the repair of the flagged queries; else the seeded rounds
@@ -1167,8 +1069,8 @@ def _topk(p1, p2, lengths2, K, norm, make_launchers, sort_queries, sort_candidat
     else unseeded."""
     P2 = p2.shape[1]
 
-    def topk(q, ref, order, rows):
-        launch, screen = make_launchers(q, ref, order, rows)
+    def topk(rows):
+        launch, screen = make_launchers(rows)
         if ub is not None:
             u = ub if rows is None else torch.gather(ub, 1, rows)
             with tracing.span("knn.rounds"):
@@ -1177,7 +1079,7 @@ def _topk(p1, p2, lengths2, K, norm, make_launchers, sort_queries, sort_candidat
             kqs = _quantiles(K, P2)
             screened = len(kqs) > 1 and K <= _SELECT_MAX_K
             with tracing.span("knn.bounds"):
-                taus = kth_bounds(q, ref, lengths2, kqs[-1:] if screened else kqs,
+                taus = kth_bounds(p1, p2, lengths2, kqs[-1:] if screened else kqs,
                                   norm, s, rows)
                 seeds = [seed_of(t) for t in taus]
             if screened:
@@ -1192,7 +1094,7 @@ def _topk(p1, p2, lengths2, K, norm, make_launchers, sort_queries, sort_candidat
         with tracing.span("knn.sort"):
             return _unpermute(d, rows), _unpermute(i, rows)
 
-    return _with_sorting(p1, p2, lengths2, sort_queries, sort_candidates, topk)
+    return _with_sorting(p1, p2, sort_queries, topk)
 
 
 def _check_ub(ub, p1, K, sample_bound):
@@ -1208,7 +1110,7 @@ def _check_ub(ub, p1, K, sample_bound):
 
 
 def knn_topk_cuda(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
-                  sort_candidates=None, sample_bound=None, sample_s=None, ub=None,
+                  sample_bound=None, sample_s=None, ub=None,
                   instrument: bool = False, _plan: Plan | None = None,
                   _stats: list | None = None):
     """Launch ``csrc/knn.cu`` on CUDA tensors: float32 points, int64
@@ -1218,10 +1120,9 @@ def knn_topk_cuda(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
     (N, blocks, 5) int64 counters of ``COUNTERS`` per block of the launch
     (the blocks of the sorted queries, if sorted).
 
-    ``sort_queries`` / ``sort_candidates``: Morton-sort the queries / the
-    candidates (None: ``sort_gates``). Sorted candidates need the carried
-    instances (D = 3, K >= 5; at norm 1 not 17 <= K <= 32), counters the counting ones (D = 3, norm 2,
-    5 <= K <= 64): asked for elsewhere, they raise. ``sample_bound``:
+    ``sort_queries``: Morton-sort the queries (None: ``sort_gates``).
+    Counters need the counting instances (D = 3, norm 2, 5 <= K <= 64):
+    asked for elsewhere, they raise. ``sample_bound``:
     seed from bounds on a ``sample_s``-point sample (default
     ``_default_sample_s``; None: ``seed_gate``), with the repair, no host
     sync; not with ``instrument``. A seeded call of more than one round
@@ -1235,12 +1136,7 @@ def knn_topk_cuda(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
     _check_ub(ub, p1, K, sample_bound)
     N, P1, D = p1.shape
     P2 = p2.shape[1]
-    sort_queries, sort_candidates = sort_gates(N * P1 * P2, K, True, sort_queries,
-                                               sort_candidates)
-    if sort_candidates and not _carried_instance(D, K, norm):
-        raise ValueError(f"knn_topk_cuda: no candidate-sorted kernel for D={D}, "
-                         f"K={K}, norm={norm} (D = 3 and K >= 5 only; at norm 1 "
-                         "not 17 <= K <= 32)")
+    sort_queries = sort_gates(N * P1 * P2, K, True, sort_queries)
     if instrument and not _counted_instance(D, K, norm):
         raise ValueError(f"knn_topk_cuda: no counting kernel for D={D}, K={K}, "
                          f"norm={norm} (D = 3, norm 2, 5 <= K <= 64 only)")
@@ -1256,53 +1152,46 @@ def knn_topk_cuda(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
             raise ValueError(f"knn_topk_cuda needs contiguous {dtype} inputs")
     s = sample_s or _default_sample_s(P2)
     seeded = ub is None and not instrument and seed_gate(K, P2, s, True, sample_bound)
-    plan = _plan or _card_plan(dev.index, N, P1, P2, D, min(K, ROUND_K), norm,
-                               sort_candidates)
-    block = plan.queries * plan.threads
-    counts = (torch.zeros((N, -(-P1 // block), len(COUNTERS)), dtype=torch.int64,
-                          device=dev) if instrument else None)
+    plan = _plan or _card_plan(dev.index, N, P1, P2, D, min(K, ROUND_K), norm)
+    blocks = -(-P1 // (plan.queries * plan.threads))
+    counts = (torch.zeros((N, blocks, len(COUNTERS)), dtype=torch.int64, device=dev)
+              if instrument else None)
 
-    def make_launchers(q, ref, order, rows):
+    def make_launchers(rows):
         rows32 = None if rows is None else rows.to(torch.int32)
-        ids = None if order is None else order.ids
-        screen = _screener(q, ref, lengths2, norm, rows32, ids, stats=_stats)
-        if order is None:
-            return _launcher(q, ref, lengths2, norm, plan, rows32, counts=counts), screen
-        return _launcher(q, ref, lengths2, norm, plan, rows32, order.ids,
-                         scan_starts(q, order, block, plan.tile, rows), counts), screen
+        return (_launcher(p1, p2, lengths2, norm, plan, rows32, counts),
+                _screener(p1, p2, lengths2, norm, rows32, stats=_stats))
 
     d, i = _topk(p1, p2, lengths2, K, norm, make_launchers, sort_queries,
-                 sort_candidates, s if seeded else None, ub)
+                 s if seeded else None, ub)
     return (d, i, counts) if instrument else (d, i)
 
 
 @tracing.spanned("knn_topk")
 def knn_topk(p1, p2, lengths2, K: int, norm: int, *, sort_queries=None,
-             sort_candidates=None, sample_bound=None, sample_s=None, ub=None):
+             sample_bound=None, sample_s=None, ub=None):
     """The K nearest of the first ``lengths2[n]`` points of ``p2`` for every
     query in ``p1``: the CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors, each with the Morton sorts and the seeding asked for
+    CPU tensors, each with the query sort and the seeding asked for
     (None: the auto gates, which are off on the CPU). See
     ``knn_topk_cuda``."""
     if p1.is_cuda:
         return knn_topk_cuda(p1, p2, lengths2, K, norm, sort_queries=sort_queries,
-                             sort_candidates=sort_candidates,
                              sample_bound=sample_bound, sample_s=sample_s, ub=ub)
     if p1.device.type == "cpu":
         _check_inputs(p1, p2, lengths2, K, norm)
         _check_ub(ub, p1, K, sample_bound)
         N, P1, _ = p1.shape
         P2 = p2.shape[1]
-        sq, sc = sort_gates(N * P1 * P2, K, False, sort_queries, sort_candidates)
+        sq = sort_gates(N * P1 * P2, K, False, sort_queries)
         s = sample_s or _default_sample_s(P2)
         seeded = ub is None and seed_gate(K, P2, s, False, sample_bound)
 
-        def make_launchers(q, ref, order, rows):
-            q = q if rows is None else _gather_rows(q, rows)
-            ids = None if order is None else order.ids.to(torch.int64)
-            return (_plain_launcher(q, ref, lengths2, norm, ids),
-                    _plain_screener(q, ref, lengths2, norm, ids))
+        def make_launchers(rows):
+            q = p1 if rows is None else _gather_rows(p1, rows)
+            return (_plain_launcher(q, p2, lengths2, norm),
+                    _plain_screener(q, p2, lengths2, norm))
 
-        return _topk(p1, p2, lengths2, K, norm, make_launchers, sq, sc,
+        return _topk(p1, p2, lengths2, K, norm, make_launchers, sq,
                      s if seeded else None, ub)
     raise ValueError(f"knn_topk: no kernel for device {p1.device}")

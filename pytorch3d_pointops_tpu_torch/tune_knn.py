@@ -14,22 +14,19 @@ after a warm-up; calls under 1 ms timed 20 at a time), and holds each
 plan's output against ``knn_topk_plain``
 on up to 4,096 queries (indices equal, distances bit-equal).
 
-Beside the plans it times the Morton sorts (``kernels/spatial_sort.py``)
-under the plans ``knn_topk_cuda`` picks for them, each call with its sort
-included: queries sorted, candidates sorted and both (the last two where
-the kernel has candidate-sorted instances, K >= 5), each held bit-equal
-to the unsorted call; the kernel alone on orders made beforehand
-(``kernel_ms``); the sorts alone (``sort_ms``); and, where the kernel has
-counting instances (5 <= K <= 64), the counters of one launch unsorted
-and sorted (groups, fired votes, drains, insertions, pending appends;
-``fired_share`` = fired / groups). Then, at shapes between the two sides
+Beside the plans it times the query sort (``kernels/spatial_sort.py``)
+under the plan ``knn_topk_cuda`` picks, each call with its sort included,
+held bit-equal to the unsorted call; the kernel alone on the order made
+beforehand (``kernel_ms``); the sort alone (``sort_ms``); and, where the
+kernel has counting instances (5 <= K <= 64), the counters of one launch
+unsorted and sorted (groups, fired votes, drains, insertions, pending
+appends; ``fired_share`` = fired / groups). Then, at shapes between the two sides
 of the query sort's auto gate (``GATE_SHAPES``: one cloud and many clouds
 at 2.5e9-6.4e9 pairs), it times unsorted against queries sorted, sort
 included, and names what the gate picks. It prints one JSON line per
 shape, a table of the sort columns, the gate table, then the card's name
-and power limit. A knn
-module without launch plans or sorts is timed under its one launch,
-unsorted.
+and power limit. A knn module without launch plans or sorts is timed under
+its one launch, unsorted.
 
 Last, the seeding table (``--seeding`` runs it alone): kth-bound seeding
 (``knn_topk(sample_bound=True)``) against unseeded at the north star and
@@ -37,9 +34,9 @@ Last, the seeding table (``--seeding`` runs it alone): kth-bound seeding
 K=16, the queries sorted where the gate sorts them: the call with its
 sample pass and repair, the bounds alone (``kth_bounds``), the sample's
 KNN alone, the seeded and unseeded rounds alone, each sample size in
-``SAMPLE_SIZES`` of the shape, the candidates sorted too, and the
-counters' insertions a query with and without the seed. Every seeded
-call is held bit-equal to the unseeded one.
+``SAMPLE_SIZES`` of the shape, and the counters' insertions a query with
+and without the seed. Every seeded call is held bit-equal to the unseeded
+one.
 
 Then the screen column (``--screen`` runs it alone): the screen and select
 of a seeded call of more than one round (``kernels/knn.py`` ``_screener``)
@@ -61,9 +58,8 @@ import numpy as np
 import torch
 
 KS = (1, 8, 16, 32, 64, 100)
-# Sort variants: (sort_queries, sort_candidates).
-SORTS = {"unsorted": (False, False), "queries": (True, False),
-         "candidates": (False, True), "both": (True, True)}
+# Sort variants: sort_queries.
+SORTS = {"unsorted": False, "queries": True}
 CHECK_QUERIES = 4096
 BATCH = 20
 # (clouds, points a cloud) between 16 x 10,000 (1.6e9 pairs) and the north
@@ -123,42 +119,26 @@ def _sort_columns(kk, p1, p2, lengths2, K):
     bit-equal to the unsorted call."""
     from .kernels import spatial_sort as ss
 
-    base = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sort_queries=False,
-                            sort_candidates=False)
-    out = {"sorted_ms": {}, "sorted_plan": {}}
-    for name, (sq, sc) in SORTS.items():
-        if sc and not kk._carried_instance(p1.shape[2], K, 2):
-            continue
-        kw = dict(sort_queries=sq, sort_candidates=sc)
-        d, i = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, **kw)
+    base = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sort_queries=False)
+    # The kernel alone on the order computed beforehand.
+    rows = ss.morton_order(p1).int()
+    plan = kk.card_plans(p1, p2, K, 2)[0]
+    out = {"sorted_ms": {}, "kernel_ms": {}}
+    for name, sq in SORTS.items():
+        d, i = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sort_queries=sq)
         if not (torch.equal(d, base[0]) and torch.equal(i, base[1])):
             raise RuntimeError(f"tune_knn: K={K} sorted {name} differs from unsorted")
         out["sorted_ms"][name] = _ms(lambda: kk.knn_topk_cuda(p1, p2, lengths2, K, 2,
-                                                              **kw))
-        out["sorted_plan"][name] = kk.plan_name(
-            kk.card_plans(p1, p2, K, 2, carried=sc)[0])
-    out["sort_ms"] = {
-        "queries": _ms(lambda: ss.morton_order(p1)),
-        "candidates": _ms(lambda: kk.candidate_order(p1, p2, lengths2)),
-    }
-    # The kernel alone on orders computed beforehand.
-    order, rows = kk.candidate_order(p1, p2, lengths2), ss.morton_order(p1)
-    out["kernel_ms"] = {}
-    for name, (sq, sc) in SORTS.items():
-        if name not in out["sorted_ms"]:
-            continue
-        plan = kk.card_plans(p1, p2, K, 2, carried=sc)[0]
+                                                              sort_queries=sq))
         r = rows if sq else None
-        args = (p1, p2, lengths2, K, 2, plan, None if r is None else r.int())
-        if sc:
-            starts = kk.scan_starts(p1, order, plan.queries * plan.threads, plan.tile, r)
-            args = (p1, order.points, lengths2, K, 2, plan, args[-1], order.ids, starts)
-        out["kernel_ms"][name] = _ms(lambda: kk._launch_rounds(*args))
+        out["kernel_ms"][name] = _ms(lambda: kk._launch_rounds(p1, p2, lengths2, K, 2,
+                                                               plan, r))
+    out["sort_ms"] = _ms(lambda: ss.morton_order(p1))
     if kk._counted_instance(p1.shape[2], K, 2):
         out["counters"] = {}
-        for name, (sq, sc) in SORTS.items():
+        for name, sq in SORTS.items():
             c = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sort_queries=sq,
-                                 sort_candidates=sc, instrument=True)[2]
+                                 instrument=True)[2]
             tot = dict(zip(kk.COUNTERS, c.sum(dim=(0, 1)).tolist()))
             tot["fired_share"] = tot["fired"] / max(tot["groups"], 1)
             out["counters"][name] = tot
@@ -178,13 +158,13 @@ def _gate_table(kk, rng, dev):
         for K in KS[1:]:
             ms = {}
             for name in ("unsorted", "queries"):
-                kw = dict(sort_queries=name == "queries", sort_candidates=False)
-                ms[name] = _ms(lambda: kk.knn_topk_cuda(p1, p2, lengths2, K, 2, **kw))
+                ms[name] = _ms(lambda: kk.knn_topk_cuda(p1, p2, lengths2, K, 2,
+                                                        sort_queries=SORTS[name]))
             base = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sort_queries=False)
             srt = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sort_queries=True)
             if not (torch.equal(base[0], srt[0]) and torch.equal(base[1], srt[1])):
                 raise RuntimeError(f"tune_knn: {N} x {P} K={K} sorted queries differ")
-            pick = kk.sort_gates(N * P * P, K, True)[0]
+            pick = kk.sort_gates(N * P * P, K, True)
             lines.append(f"{N} x {P:,} | {N * P * P:.2e} | {K} | {ms['unsorted']:.3f} | "
                          f"{ms['queries']:.3f} | {ms['queries'] / ms['unsorted']:.3f} | "
                          f"{'queries' if pick else 'unsorted'}")
@@ -196,7 +176,7 @@ def _seed_row(kk, ss, p1, p2, lengths2, K, sizes):
     """The seeding columns at one shape and K (see the module docstring)."""
     N, P1, D = p1.shape
     P2 = p2.shape[1]
-    sq = kk.sort_gates(N * P1 * P2, K, True)[0]
+    sq = kk.sort_gates(N * P1 * P2, K, True)
     rows = ss.morton_order(p1) if sq else None
     rows32 = None if rows is None else rows.int()
     plan = kk.card_plans(p1, p2, K, 2)[0]
@@ -231,19 +211,8 @@ def _seed_row(kk, ss, p1, p2, lengths2, K, sizes):
                 p1, p2, lengths2, K, 2, plan, rows32, seeds=seeds)[1].split(
                     kk.ROUND_K, dim=2), lengths2, K)),
         }
-    s = sizes[0]
-    if kk._carried_instance(D, K, 2) and N * P1 * P2 <= 10**10:
-        kw = dict(sample_bound=True, sample_s=s, sort_queries=True, sort_candidates=True)
-        out = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, **kw)
-        if not (torch.equal(out[0], base[0]) and torch.equal(out[1], base[1])):
-            raise RuntimeError(f"tune_knn: seeded both-sorted K={K} differs")
-        row["both_sorted_ms"] = {
-            "seeded": _ms(lambda: kk.knn_topk_cuda(p1, p2, lengths2, K, 2, **kw)),
-            "unseeded": _ms(lambda: kk.knn_topk_cuda(
-                p1, p2, lengths2, K, 2, sample_bound=False, sort_queries=True,
-                sort_candidates=True))}
     if kk._counted_instance(D, K, 2):
-        tau = kk.kth_bounds(p1, p2, lengths2, [K], 2, s)[0]
+        tau = kk.kth_bounds(p1, p2, lengths2, [K], 2, sizes[0])[0]
         row["insertions_a_query"] = {
             name: kk.knn_topk_cuda(p1, p2, lengths2, K, 2, sort_queries=sq,
                                    instrument=True, **kw)[2][..., 3].sum().item() / (N * P1)
@@ -302,12 +271,10 @@ def _screen_column(kk, rng, dev, K=100):
 
 
 def _table_line(label, K, r):
-    ms = " / ".join(f"{r['sorted_ms'][n]:.3f} ({r['kernel_ms'][n]:.3f})"
-                    if n in r["sorted_ms"] else "-" for n in SORTS)
-    sorts = " / ".join(f"{v:.3f}" for v in r["sort_ms"].values())
+    ms = " / ".join(f"{r['sorted_ms'][n]:.3f} ({r['kernel_ms'][n]:.3f})" for n in SORTS)
     share = " / ".join(f"{r['counters'][n]['fired_share']:.4f}"
-                       for n in ("unsorted", "queries", "both")) if "counters" in r else "-"
-    return f"{label} | {K} | {ms} | {sorts} | {share}"
+                       for n in SORTS) if "counters" in r else "-"
+    return f"{label} | {K} | {ms} | {r['sort_ms']:.3f} | {share}"
 
 
 def main() -> int:
@@ -328,7 +295,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
     card_plans = getattr(kk, "card_plans", None)
-    has_sorts = hasattr(kk, "candidate_order")
+    has_sorts = hasattr(kk, "sort_gates")
     lines, table = [], []
     only = args.seeding or args.screen
     for label, p1, p2, lengths2 in ([] if only else _shapes(rng, dev)):
@@ -344,7 +311,7 @@ def main() -> int:
             for plan in plans:
                 kw = {} if plan is None else {"_plan": plan}
                 if has_sorts:
-                    kw.update(sort_queries=False, sort_candidates=False)
+                    kw.update(sort_queries=False)
                 d, i = kk.knn_topk_cuda(p1, p2, lengths2, K, 2, **kw)
                 d, i = _apply_pad_conventions(d[:, :sub], i[:, :sub],
                                               lengths2.new_full((N,), sub),
@@ -362,9 +329,8 @@ def main() -> int:
         lines.append(json.dumps(row))
         print(lines[-1], flush=True)
     if table:
-        print("shape | K | unsorted / queries / candidates / both sorted ms, sorts "
-              "included (kernel alone) | sorts alone ms (queries / candidates) | "
-              "fired share unsorted / queries / both")
+        print("shape | K | unsorted / queries sorted ms, sort included (kernel "
+              "alone) | query sort alone ms | fired share unsorted / queries")
         print("\n".join(table))
         head = ("gate shape | pairs | K | unsorted ms | queries sorted ms (sort "
                 "included) | ratio | the gate's pick")

@@ -219,7 +219,7 @@ def test_chamfer_features_match_jax(abs_cosine, point_reduction):
 
 
 def test_chamfer_pointclouds_input_with_features():
-    """The slice as a whole: Pointclouds carried over from the JAX package
+    """The slice as a whole: Pointclouds brought over from the JAX package
     with the conversion helper, the loss and its gradient."""
     x, y, l1, l2 = _clouds(7, grid=True)
     rng = np.random.default_rng(8)

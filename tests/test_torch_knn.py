@@ -17,7 +17,6 @@ from pytorch3d_pointops_tpu.ops.knn import knn_gather as jax_knn_gather
 from pytorch3d_pointops_tpu.ops.knn import knn_points as jax_knn_points
 import pytorch3d_pointops_tpu_torch as ppt
 from pytorch3d_pointops_tpu_torch.kernels import knn as kk
-from pytorch3d_pointops_tpu_torch.kernels import spatial_sort as ss
 from pytorch3d_pointops_tpu_torch.ops.knn import _apply_pad_conventions, knn_backward
 
 torch.set_num_threads(2)
@@ -314,26 +313,21 @@ def _sort_case(cloud, seed):
     return p1, p2, l2
 
 
-_SORTS = [(True, False), (False, True), (True, True)]
-
-
 @pytest.mark.parametrize("norm", [1, 2])
 @pytest.mark.parametrize("K", [4, 16, 100])
 @pytest.mark.parametrize("cloud", ["dup", "ragged", "grid"])
 def test_sorted_knn_equals_unsorted_and_jax(cloud, K, norm):
-    """Morton sorting on CPU tensors (the plain twin behind the same
-    permutations, ties broken by the carried original indices): each sort
-    alone and both give indices equal and distances bit-equal to the
+    """Query sorting on CPU tensors (the plain twin behind the same
+    permutation) gives indices equal and distances bit-equal to the
     unsorted plain path, pads and ties included, and indices equal to the
-    JAX kernel with both sorts on (interpret mode; K=100 against the JAX
-    package's single-shot forward)."""
+    JAX kernel with both of its sorts on (interpret mode; K=100 against the
+    JAX package's single-shot forward)."""
     p1, p2, l2 = _sort_case(cloud, K + norm)
     args = (_t(p1), _t(p2), _t(l2))
-    d0, i0 = kk.knn_topk(*args, K, norm, sort_queries=False, sort_candidates=False)
-    for sq, sc in _SORTS:
-        d, i = kk.knn_topk(*args, K, norm, sort_queries=sq, sort_candidates=sc)
-        assert torch.equal(i, i0), (sq, sc)
-        assert torch.equal(d, d0), (sq, sc)
+    d0, i0 = kk.knn_topk(*args, K, norm, sort_queries=False)
+    d, i = kk.knn_topk(*args, K, norm, sort_queries=True)
+    assert torch.equal(i, i0)
+    assert torch.equal(d, d0)
 
     N, P1 = p1.shape[:2]
     if K <= 16:
@@ -359,63 +353,29 @@ def test_sorted_knn_any_dimension(D):
     p1, p2, l1, l2 = _clouds(40 + D, 2, 90, 210, D=D, grid=True)
     args = (_t(p1), _t(p2), _t(l2))
     d0, i0 = kk.knn_topk(*args, 7, 2)
-    for sq, sc in _SORTS:
-        d, i = kk.knn_topk(*args, 7, 2, sort_queries=sq, sort_candidates=sc)
-        assert torch.equal(i, i0) and torch.equal(d, d0), (sq, sc)
-
-
-def test_candidate_order_and_scan_starts():
-    """The sorted candidates: valid rows first in ascending Morton code on
-    the joint box, pads last, ids a permutation; each block's start tile is
-    the last whose first code is at or below its median query's code."""
-    p1, p2, l2 = _sort_case("ragged", 3)
-    p1, p2, l2 = _t(p1), _t(p2), _t(l2)
-    order = kk.candidate_order(p1, p2, l2)
-    assert order.ids.dtype == torch.int32 and order.codes.dtype == torch.int32
-    for n in range(3):
-        ids = order.ids[n].long()
-        assert sorted(ids.tolist()) == list(range(400))
-        assert torch.equal(order.points[n], p2[n][ids])
-        valid = int(l2[n])
-        assert (ids[:valid] < valid).all() and (ids[valid:] >= valid).all()
-        assert (order.codes[n, valid:] == ss.PAD_CODE).all()
-        assert (order.codes[n, 1:] >= order.codes[n, :-1]).all()
-        assert (order.codes[n, :valid] < ss.PAD_CODE).all()
-    block, tile = 64, 48
-    starts = kk.scan_starts(p1, order, block, tile)
-    assert starts.shape == (3, 3) and starts.dtype == torch.int32
-    med = ss.morton_code(p1[:, [32, 96, 149]], order.lo, order.hi).numpy()
-    for n in range(3):
-        firsts = order.codes[n, ::tile].numpy()
-        for b in range(3):
-            want = max(int(np.searchsorted(firsts, med[n, b], side="right")) - 1, 0)
-            assert int(starts[n, b]) == want
+    d, i = kk.knn_topk(*args, 7, 2, sort_queries=True)
+    assert torch.equal(i, i0) and torch.equal(d, d0)
 
 
 def test_sort_gates_and_unserved_requests_raise():
-    """The auto gates are off on the CPU and for K=1, the candidates' gate
-    always; an explicit choice stands. Candidate sorting and the counters
-    exist only for the kernel instances that serve them (D=3, K >= 5, at
-    norm 1 not 17 <= K <= 32; D=3, norm 2, 5 <= K <= 64): asked for
-    elsewhere they raise before any launch."""
-    assert kk.sort_gates(10**12, 16, False) == (False, False)
-    assert kk.sort_gates(10**12, 1, True) == (False, False)
-    assert kk.sort_gates(10**12, 16, True) == (True, False)
-    assert kk.sort_gates(16 * 10**8, 16, True) == (False, False)
+    """The auto gate is off on the CPU and for K=1; an explicit choice
+    stands. The counters exist only for the kernel instances that serve
+    them (D=3, norm 2, 5 <= K <= 64): asked for elsewhere they raise before
+    any launch."""
+    assert kk.sort_gates(10**12, 16, False) is False
+    assert kk.sort_gates(10**12, 1, True) is False
+    assert kk.sort_gates(10**12, 16, True) is True
+    assert kk.sort_gates(16 * 10**8, 16, True) is False
     # Each K bucket's threshold (SORT_QUERIES_MIN_PAIRS), K > 64 as 64.
     for pairs, K, on in ((10**10, 16, False), (10**11, 9, True), (10**12, 8, False),
                          (5 * 10**9, 32, False), (6 * 10**9, 17, True),
                          (16 * 10**8, 64, False), (2 * 10**9, 33, True),
                          (25 * 10**8, 100, True)):
-        assert kk.sort_gates(pairs, K, True) == (on, False), (pairs, K)
-    assert kk.sort_gates(10, 1, False, True, True) == (True, True)
+        assert kk.sort_gates(pairs, K, True) is on, (pairs, K)
+    assert kk.sort_gates(10, 1, False, True) is True
+    assert kk.sort_gates(10**12, 16, True, False) is False
     p = torch.zeros((1, 40, 3))
     l2 = torch.full((1,), 40)
-    for kw in (dict(K=16, D=5, norm=2), dict(K=1, D=3, norm=2), dict(K=4, D=3, norm=2),
-               dict(K=17, D=3, norm=1), dict(K=32, D=3, norm=1)):
-        q = torch.zeros((1, 40, kw["D"]))
-        with pytest.raises(ValueError, match="candidate-sorted"):
-            kk.knn_topk_cuda(q, q, l2, kw["K"], kw["norm"], sort_candidates=True)
     for K, norm in ((1, 2), (4, 2), (100, 2), (16, 1)):
         with pytest.raises(ValueError, match="counting"):
             kk.knn_topk_cuda(p, p, l2, K, norm, instrument=True)

@@ -121,18 +121,17 @@ def test_screen_and_select_equal_the_chained_rounds(flags_seen, K, norm, sort_qu
     _held(out, 1, None, lengths, K, norm)
 
 
-@pytest.mark.parametrize("sort_candidates", [False, True])
-def test_ties_across_the_kth_slot(flags_seen, sort_candidates):
+@pytest.mark.parametrize("sort_queries", [False, True])
+def test_ties_across_the_kth_slot(flags_seen, sort_queries):
     """A grid cloud with ties across slot K: the select breaks them by
-    index (the original index, with the candidates sorted), as the rounds
-    do."""
+    index, as the rounds do, the queries sorted or not."""
     lengths = (P2, P2, 900)
     p1, p2 = _clouds(2, levels=5)
     args = (_t(p1), _t(p2), _t(lengths))
     wide = kk.knn_topk(*args, 101, 2, sample_bound=False)[0]
     assert (wide[..., 99] == wide[..., 100]).any()  # ties across the K-th slot
     out = kk.knn_topk(*args, 100, 2, sample_bound=True, sample_s=S,
-                      sort_candidates=sort_candidates)
+                      sort_queries=sort_queries)
     assert not flags_seen[0].any()
     _held(out, 2, 5, lengths, 100, 2)
 

@@ -100,19 +100,14 @@ def test_raw_ub_too_tight_leaves_sentinels_like_jax(sort_queries):
 
 
 def test_plain_twin_seed_edge_tie_rule():
-    """A candidate exactly at the seed: in index order (the kernel's
-    default instances) the seed entries sort first and it is not admitted;
-    with carried indices (candidate-sorted instances) SENT sorts last and
-    it is admitted. Below the seed both admit it."""
+    """A candidate exactly at the seed: the seed entries sort first and it
+    is not admitted, as in the kernel. Below the seed it is admitted."""
     p1 = torch.zeros((1, 1, 3))
     p2 = torch.tensor([[[0.5, 0, 0], [2.0, 0, 0], [0.25, 0, 0]]])
     l2 = torch.tensor([3])
     ub = torch.nextafter(torch.tensor([[0.25]]), torch.tensor(-1.0))  # seed 0.25
     d, i = kk.knn_topk_plain(p1, p2, l2, 2, 2, ub=ub)
     assert i.tolist() == [[[2, kk.SENT]]] and d.tolist() == [[[0.0625, 0.25]]]
-    ids = torch.tensor([[0, 1, 2]], dtype=torch.int32)
-    d, i = kk.knn_topk_plain(p1, p2, l2, 2, 2, cand_ids=ids, ub=ub)
-    assert i.tolist() == [[[2, 0]]] and d.tolist() == [[[0.0625, 0.25]]]
     d, i = kk.knn_topk_plain(p1, p2, l2, 2, 2, ub=torch.tensor([[0.25]]))
     assert i.tolist() == [[[2, 0]]]
 
@@ -164,24 +159,23 @@ _SEEDED_CASES = {
 }
 
 
-@pytest.mark.parametrize("sorts", [(False, False), (True, False), (False, True),
-                                   (True, True)])
+@pytest.mark.parametrize("sort_queries", [False, True])
 @pytest.mark.parametrize("case", sorted(_SEEDED_CASES))
-def test_sampled_seeding_matches_jax_and_unseeded(case, sorts):
+def test_sampled_seeding_matches_jax_and_unseeded(case, sort_queries):
     """``knn_topk(sample_bound=True)`` on CPU tensors runs the seeded
-    rounds and the repair over the plain twin: bit-equal to the unseeded call, with each
-    sort, and equal to the JAX package (its seeded kernel in interpret
-    mode, or its single-shot forward for the larger cases)."""
+    rounds and the repair over the plain twin: bit-equal to the unseeded
+    call, the queries sorted or not, and equal to the JAX package (its
+    seeded kernel in interpret mode, or its single-shot forward for the
+    larger cases)."""
     make, l2, K, norm, s, ref_kind = _SEEDED_CASES[case]
     p1, p2 = make()
     l2 = np.array(l2)
     args = (_t(p1), _t(p2), _t(l2))
-    sq, sc = sorts
-    base = kk.knn_topk(*args, K, norm, sort_queries=False, sort_candidates=False)
-    out = kk.knn_topk(*args, K, norm, sample_bound=True, sample_s=s, sort_queries=sq,
-                      sort_candidates=sc)
+    base = kk.knn_topk(*args, K, norm, sort_queries=False)
+    out = kk.knn_topk(*args, K, norm, sample_bound=True, sample_s=s,
+                      sort_queries=sort_queries)
     _same(out, base)
-    if sorts != (False, False):
+    if sort_queries:
         return
     if ref_kind == "pallas":
         ref = kp.knn_forward_pallas(jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(l2),
@@ -233,6 +227,45 @@ def test_too_tight_bounds_are_repaired(monkeypatch, K):
     ds, idxs = kk._chain(launch, K, 1024, seeds)
     assert int(kk.repair_gate(idxs, args[2], K)) == 1
     assert int(kk.repair_gate(*kk._chain(launch, K, 1024)[1:], args[2], K)) == 0
+
+
+@pytest.mark.parametrize("sort_queries", [False, True])
+@pytest.mark.parametrize("case", ["K=80 norm 1", "K=100 tie cloud", "K=130 ragged",
+                                  "K=100 tie cloud, bounds -1"])
+def test_seeded_chained_rounds_past_the_select_limit(monkeypatch, case, sort_queries):
+    """Past the select's limit (``_SELECT_MAX_K`` lowered below K) a seeded
+    call of more than one round keeps the seeded chained rounds, as the JAX
+    package's ``_knn_forward_pallas_bigk`` does: ``kth_bounds`` at every
+    round's quantile, one seed a round, the rounds and their repair,
+    bit-equal to the unseeded call. With every bound -1 no round fills, the
+    gate word is 1, every round reruns unseeded, and the result is still
+    the unseeded one."""
+    forced = case.endswith("bounds -1")
+    make, l2, K, norm, s, _ = _SEEDED_CASES[case.split(",")[0]]
+    p1, p2 = make()
+    args = (_t(p1), _t(p2), _t(np.array(l2)))
+    P2 = p2.shape[1]
+    base = kk.knn_topk(*args, K, norm, sort_queries=False)
+    monkeypatch.setattr(kk, "_SELECT_MAX_K", K - 1)
+    seeded = []
+    real_seeded = kk._seeded
+
+    def counted(launch, K, P2, lengths2, seeds):
+        seeded.append(len(seeds))
+        return real_seeded(launch, K, P2, lengths2, seeds)
+
+    monkeypatch.setattr(kk, "_seeded", counted)
+    if forced:
+        monkeypatch.setattr(kk, "kth_bounds", lambda p1, p2, lengths2, kqs, norm, s,
+                            rows=None: [torch.full(p1.shape[:2], -1.0) for _ in kqs])
+    rounds = _counting_rounds(monkeypatch)
+    out = kk.knn_topk(*args, K, norm, sample_bound=True, sample_s=s,
+                      sort_queries=sort_queries)
+    _same(out, base)
+    R = kk._rounds(K, P2)
+    assert R > 1 and seeded == [R]
+    if forced:
+        assert len(rounds) == 2 * R  # the seeded rounds, then each one again
 
 
 @pytest.mark.parametrize("K", [16, 100, 150])

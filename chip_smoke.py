@@ -22,7 +22,10 @@ query (lengths2 of 31, 32, 33 and one past a staged tile, 37 queries, K in
 the chamfer NN kernel's D=3 instance at every
 pair of sizes in {1, 127, 129, 1,023, 1,025, 2,049} with lengths of 0, 1
 and mid-sub-tile on grid clouds and clouds with duplicated points
-(distances and indices equal), every FPS entry point with per-cloud K (K past the length and past the
+(distances and indices equal), and its sub-tile rescan on grid clouds of
+1,100 x 2,300 points and at the chamfer cell's 32 x 16,384 (all four
+outputs equal, both norms, the launches and ``chamfer.rescan_points``
+counted), every FPS entry point with per-cloud K (K past the length and past the
 number of distinct points), explicit starts and an empty cloud, the FPS
 block kernel under every block plan at each plan's capacity - 1, + 0 and
 + 1 up to the block cap and at the cap (D = 3, 16 and 1; lengths 0, 1 and
@@ -2009,6 +2012,30 @@ def main() -> int:
                                   f"P2={P2e} grid={grid} norm={norm}")
     print(f"  chamfer_nn D=3 edges: {len(edge_sizes) ** 2 * 4} calls of 5 clouds "
           "equal to the plain twin (distances and indices)")
+    # The D = 3 instance keeps minimum values and the sub-tile that holds
+    # each, and rescans that sub-tile for the index. Tie-grid clouds of 1,100
+    # and 2,300 points (no multiple of a sub-tile or a chunk; minima tied
+    # across sub-tiles and chunks; one cloud's x side empty) and the chamfer
+    # cell's shape, 32 x 16,384: all four outputs equal to the plain twin's,
+    # both norms, each call one launch and N x (P1 + P2) rescanned points.
+    from pytorch3d_pointops_tpu_torch import tracing
+
+    rx, ry = T(grid_points(erng, (3, 1100, 3))), T(grid_points(erng, (3, 2300, 3)))
+    rl1 = T(np.array([1100, 1029, 0]), torch.int64)
+    rl2 = T(np.array([2300, 1153, 2277]), torch.int64)
+    cx = T(1.5 * erng.normal(size=(32, 16384, 3)).astype(np.float32))
+    cy = T(erng.normal(size=(32, 16384, 3)).astype(np.float32))
+    cl = T(np.full(32, 16384), torch.int64)
+    for norm in (1, 2):
+        reset_launches()
+        check_chamfer(rx, ry, rl1, rl2, norm, f"chamfer_nn D=3 tie grid 1,100 x 2,300 norm={norm}")
+        check_chamfer(cx, cy, cl, cl, norm, f"chamfer_nn D=3 32 x 16,384 norm={norm}")
+        counts = tracing.counts()
+        got = (counts.get("launch.chamfer_nn_cuda"), counts.get("chamfer.rescan_points"))
+        require(got == (2, 3 * (1100 + 2300) + 32 * 2 * 16384),
+                f"chamfer_nn D=3 norm={norm}: (launches, rescanned points) {got}")
+    print("  chamfer_nn D=3 rescan: tie grids 1,100 x 2,300 and 32 x 16,384 equal to the "
+          "plain twin (both norms); launches and rescanned points counted")
     # Distance-0 ties at scale: 20,000 Gaussian queries against 20,000
     # points, K=16, where every fifth query is a copy of a candidate and a
     # tenth of the candidates copy another, under every plan (each Q, block

@@ -86,7 +86,10 @@ def _entry():
 
 def chamfer_nn_cuda(x, y, lengths1, lengths2, norm: int):
     """Launch ``csrc/chamfer_nn.cu`` on CUDA tensors: float32 points, int64
-    lengths, all contiguous and on one device."""
+    lengths, all contiguous and on one device. At D = 3 the distance pass
+    keeps each point's minimum and the 128-point sub-tile that holds it, and
+    a rescan of that sub-tile finds the index: counted, every point of both
+    sides, in ``chamfer.rescan_points``."""
     _check_inputs(x, y, lengths1, lengths2, norm)
     for t, dtype in ((x, torch.float32), (y, torch.float32),
                      (lengths1, torch.int64), (lengths2, torch.int64)):
@@ -111,6 +114,8 @@ def chamfer_nn_cuda(x, y, lengths1, lengths2, norm: int):
         "chamfer_nn_bidir",
     )
     tracing.launch("chamfer_nn_cuda")
+    if D == 3:
+        tracing.count("chamfer.rescan_points", N * (P1 + P2))
     return d_xy, i_xy, d_yx, i_yx
 
 

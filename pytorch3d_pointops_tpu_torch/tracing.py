@@ -11,7 +11,9 @@ spans inside it), ``pointnet2.group``, ``pointnet2.mlp`` and
 ``pointnet2.pool`` once a set-abstraction level, and ``pointnet2.head``.
 Counters name what they count: ``sync.<site>`` each read of tensor values
 to the host (whatever the tensor's device, so a CPU run counts what the
-card would), ``launch.<wrapper>`` each launch of a hand-written kernel.
+card would), ``launch.<wrapper>`` each launch of a hand-written kernel,
+``chamfer.rescan_points`` the points whose nearest-neighbour index the
+chamfer kernel finds by its rescan (N x (P1 + P2) a D = 3 launch).
 
 Off by default. ``span(name)`` then returns a shared null context after one
 flag read, and ``count(name, n)`` adds to a plain dict under a lock

@@ -16,10 +16,12 @@ from pytorch3d_pointops_tpu.ops.chamfer import chamfer_distance as jax_chamfer
 from pytorch3d_pointops_tpu.ops.knn import knn_backward as jax_knn_backward
 import pytorch3d_pointops_tpu_torch as ppt
 from pytorch3d_pointops_tpu_torch.kernels import chamfer as kc
+from pytorch3d_pointops_tpu_torch.kernels.knn import pairwise_dist
 from pytorch3d_pointops_tpu_torch.ops.chamfer import _k1_backward
 
 torch.set_num_threads(2)
 TOL = 1e-5
+_INF_F = float("inf")
 
 
 def _clouds(seed, N=2, P1=24, P2=36, grid=False):
@@ -301,6 +303,110 @@ def test_nn_plain_twin_matches_pallas_kernel(seed, P1, P2, l1, l2, grid, norm):
         dead = (np.arange(P)[None] >= lx[:, None]) | (ly[:, None] == 0)
         assert np.isinf(out[side].numpy()[dead]).all()
         assert (out[side + 1].numpy()[dead] == 0).all()
+
+
+_BLOCK = 1024  # the kernel's x and y chunk
+_SUB = 128  # its sub-tile
+_INIT_KEY = 0x7F800000 << 32  # (inf, 0)
+
+
+def _block_keys(d, first):
+    """(value, sub-tile) keys of each row of one block's distance tile ``d``
+    whose columns start at point ``first``: the row's minimum value alone,
+    then the lowest 128-point sub-tile that holds it, numbered within the
+    cloud; (inf, 0) where the minimum is inf."""
+    R, C = d.shape
+    sub_min = torch.nn.functional.pad(d, (0, -C % _SUB), value=_INF_F)
+    sub_min = sub_min.view(R, -1, _SUB).amin(dim=2)
+    v = sub_min.amin(dim=1)
+    s = (sub_min == v[:, None]).int().argmax(dim=1) + first // _SUB
+    key = (v.view(torch.int32).to(torch.int64) << 32) | s
+    return torch.where(v < _INF_F, key, _INIT_KEY)
+
+
+def _rescan(key, q, c, lengths_c, norm):
+    """Each point's key's sub-tile of the other side, scanned again with the
+    plain twin's arithmetic: the key's value and the first index there whose
+    distance equals it bit for bit; (inf, 0) for a key of (inf, 0)."""
+    N, P = key.shape
+    dist = (key >> 32).to(torch.int32).view(torch.float32).clone()
+    idx = torch.zeros((N, P), dtype=torch.int64)
+    live = key != _INIT_KEY
+    n, i = live.nonzero(as_tuple=True)
+    if n.numel():
+        j = (key[n, i] & 0xFFFFFFFF)[:, None] * _SUB + torch.arange(_SUB)
+        valid = j < lengths_c.clamp(0, c.shape[1])[n][:, None]
+        cand = c[n[:, None], j.clamp(max=c.shape[1] - 1)]
+        d = torch.zeros(j.shape)
+        for a in range(q.shape[2]):
+            diff = q[n, i, a][:, None] - cand[..., a]
+            d = d + (diff * diff if norm == 2 else diff.abs())
+        hit = valid & (d == dist[n, i][:, None])
+        assert hit.any(dim=1).all()
+        idx[n, i] = j.gather(1, hit.int().argmax(dim=1, keepdim=True))[:, 0]
+    return dist, idx
+
+
+def _two_pass_nn(x, y, lengths1, lengths2, norm):
+    """A plain model of the CUDA kernel's D = 3 design: value-only minima per
+    1,024 x 1,024 block, merged across blocks as (value, sub-tile) keys, then
+    each index found by the first-equal rescan of that one sub-tile."""
+    N, P1, _ = x.shape
+    P2 = y.shape[1]
+    key_x = torch.full((N, P1), _INIT_KEY, dtype=torch.int64)
+    key_y = torch.full((N, P2), _INIT_KEY, dtype=torch.int64)
+    for n in range(N):
+        n1, n2 = int(lengths1[n].clamp(0, P1)), int(lengths2[n].clamp(0, P2))
+        for a in range(0, n1, _BLOCK):
+            for b in range(0, n2, _BLOCK):
+                d = pairwise_dist(x[n, a:min(a + _BLOCK, n1)], y[n, b:min(b + _BLOCK, n2)],
+                                  norm)
+                kx, ky = key_x[n, a:a + d.shape[0]], key_y[n, b:b + d.shape[1]]
+                kx.copy_(torch.minimum(kx, _block_keys(d, b)))
+                ky.copy_(torch.minimum(ky, _block_keys(d.T, a)))
+    return (*_rescan(key_x, x, y, lengths2, norm), *_rescan(key_y, y, x, lengths1, norm))
+
+
+def _model_clouds(kind, rng, N, P1, P2):
+    if kind == "grid":  # 125 positions: exact ties across sub-tiles and blocks
+        return (rng.integers(-2, 3, size=(N, P1, 3)).astype(np.float32) / 8,
+                rng.integers(-2, 3, size=(N, P2, 3)).astype(np.float32) / 8)
+    x = rng.normal(size=(N, P1, 3)).astype(np.float32)
+    y = rng.normal(size=(N, P2, 3)).astype(np.float32)
+    if kind == "overflow":  # every distance of these points overflows to inf
+        x[:, ::97] = 3e38
+        y[:, 5::89] = -3e38
+    return x, y
+
+
+# (lengths1, lengths2) per cloud: ragged, no multiple of 128 or 1,024, one
+# cloud's side of length 0.
+MODEL_LENGTHS = {"ragged": ([1100, 1029], [2300, 1153]),
+                 "empty_side": ([1100, 0], [2300, 2277])}
+
+
+@pytest.mark.parametrize("lengths", sorted(MODEL_LENGTHS))
+@pytest.mark.parametrize("kind", ["gauss", "grid", "overflow"])
+@pytest.mark.parametrize("norm", [1, 2])
+def test_two_pass_model_equals_plain_twin(norm, kind, lengths):
+    """The D = 3 kernel's scheme, modelled plainly, bit for bit against
+    ``chamfer_nn_plain`` in both directions: distances and indices, ties
+    resolved to the lowest index across sub-tiles and blocks, (inf, 0) where
+    a point has no partner or every distance overflows."""
+    rng = np.random.default_rng([norm, len(kind), len(lengths)])
+    x, y = map(_t, _model_clouds(kind, rng, 2, 1100, 2300))
+    l1, l2 = (_t(np.array(v)) for v in MODEL_LENGTHS[lengths])
+    want = kc.chamfer_nn_plain(x, y, l1, l2, norm)
+    got = _two_pass_nn(x, y, l1, l2, norm)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if kind == "grid":  # rows of the first cloud whose minimum ties across
+        # sub-tiles of a block, and across blocks
+        tie = pairwise_dist(x[0], y[0], norm) == want[0][0, :, None]
+        assert (tie[:, :_SUB].any(dim=1) & tie[:, _SUB:_BLOCK].any(dim=1)).any()
+        assert (tie[:, :_BLOCK].any(dim=1) & tie[:, _BLOCK:].any(dim=1)).any()
+    if kind == "overflow":
+        assert torch.isinf(want[0][0, ::97]).all() and (want[1][0, ::97] == 0).all()
 
 
 def test_k1_backward_matches_knn_backward():

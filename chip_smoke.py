@@ -36,7 +36,16 @@ scatter: both entry points under the plan ``scatter_plan`` picks (the bucket ker
 a two-pass partition; 2 to 33 channels) on uniform targets, on targets
 that crowd 16 rows and on targets all on one row, run twice and compared
 bit for bit with each other and with the plain twin on CPU copies, then a
-skewed input under every bucket size. Phase 3
+skewed input under every bucket size; and every kernel at the Point
+Transformer cell's shapes (``pt_kernels``; the model at published widths
+on four generated rooms of 80,000, 80,000, 74,213 and 61,857 points): each
+FPS of its plan (K = L // 4 of each ragged cloud; the grid kernel at 80k
+and 20k points a cloud, the block kernel below) under every entry point
+that takes it, every KNN (self at K = 8 and 16, each ``TransitionDown``'s at
+16, each ``TransitionUp``'s at 3; ragged cross-level batches), the scatter
+at C = 64 into 296,070 rows (2.37M entries) and C = 1,024 into 1,154 rows
+and the gathers' backward through ``masked_gather`` and ``knn_gather``
+there, each against its twin. Phase 3
 drives two main paths at
 full size through the public entry points, each with every launch counter
 set to 0 just before and read just after:
@@ -73,6 +82,16 @@ both entry points, and the K=1 scatters of a config 3 step with its source
 collapsed to a point beside the normal step's, each with its longest row;
 the FPS grid round's fixed cost is timed on a cloud of 8 points a block,
 the block round's on 32 clouds of 512 points.
+
+Phase 3c drives the Point Transformer's training step (``plan``, forward,
+cross-entropy, backward) on phase 2's rooms as a main path with its own
+launch counts (2 grid and 2 block FPS launches, 26 scatters, at least one
+KNN launch for each of its 13 KNN calls, no other kernel) under
+``torch.cuda.set_sync_debug_mode("error")`` with no ``sync.`` counter, and
+prints its peak memory and its step time. Two steps are bit-equal, and
+so is the step through the plain twins on the card with the scatter's twin
+on CPU copies: the plan's indices and distances, the logits, the loss and
+every gradient.
 
 Phase 4 holds the KNN kernel's query sorting (``sort_queries``) bit-equal
 to the unsorted kernel in both norms at the north star (K=16, 100), config
@@ -1804,6 +1823,222 @@ def phase10(wrappers, dev):
     return cases
 
 
+# The point_transformer_seg.b4x80k cell's clouds (benchmark/workloads).
+PT_LENGTHS = [80000, 80000, 74213, 61857]
+
+
+def room_clouds(rng, lengths, P):
+    """Rooms as the Point Transformer cell's traffic makes them: points on
+    the six faces of a box of 4-10 x 4-10 x 2.5-3.5 m and of 8-16 boxes of
+    0.3-2 m a side standing in it, in proportion to area, jittered by 1 cm
+    and shifted so that each axis starts at 0; colours uniform in [0, 1);
+    a label in [0, 13) for each room face and each box. Returns padded xyz
+    and rgb (N, P, 3) float32, zero past each length, and the labels of
+    every valid point, packed."""
+    N = len(lengths)
+    xyz, rgb = np.zeros((N, P, 3), np.float32), np.zeros((N, P, 3), np.float32)
+    labels, eye = [], np.eye(3)
+    for n, L in enumerate(lengths):
+        size = rng.uniform([4.0, 4.0, 2.5], [10.0, 10.0, 3.5])
+        B = int(rng.integers(8, 17))
+        ext = np.minimum(rng.uniform(0.3, 2.0, size=(B, 3)), size)
+        corner = rng.uniform(size=(B, 3)) * (size - ext)
+        corner[:, 2] = 0.0
+        faces = [(c + side * e[a] * eye[a], e[(a + 1) % 3] * eye[(a + 1) % 3],
+                  e[(a + 2) % 3] * eye[(a + 2) % 3])
+                 for c, e in zip(np.vstack([np.zeros(3), corner]), np.vstack([size, ext]))
+                 for a in range(3) for side in (0.0, 1.0)]
+        o, u, v = (np.array(t) for t in zip(*faces))
+        area = np.linalg.norm(u, axis=1) * np.linalg.norm(v, axis=1)
+        f = rng.choice(len(area), size=L, p=area / area.sum())
+        a, b = rng.uniform(size=(2, L, 1))
+        pts = o[f] + a * u[f] + b * v[f] + rng.normal(scale=0.01, size=(L, 3))
+        xyz[n, :L] = pts - pts.min(0)
+        rgb[n, :L] = rng.uniform(size=(L, 3))
+        surface = np.where(f < 6, f, 6 + (f - 6) // 6)
+        labels.append(rng.integers(0, 13, size=6 + B)[surface])
+    return xyz, rgb, np.concatenate(labels)
+
+
+def pt_kernels(model, xyz, lengths, note_err):
+    """Phase 2 at the Point Transformer cell's shapes: the plan of clouds
+    ``xyz`` with ``lengths`` (host ints), and every kernel it runs held to
+    its plain twin on the plan's own inputs. Each FPS of the four sampled
+    levels (K = L // 4 of each ragged cloud) under every entry point that
+    takes its clouds, equal to ``fps_plain`` and to the plan; the KNN of
+    every level (self at each level's nsample, each TransitionDown's at its
+    nsample, each TransitionUp's 3 nearest coarser points; ragged
+    cross-level batches), distances and indices equal; the scatter at the
+    gathers' widest shapes (the attention's k and v at levels 1 and 5: C =
+    64 into every level-1 row, C = 1,024 into the 1,154 of level 5; a
+    TransitionDown's and a TransitionUp's at C = 32), bit-equal run to run
+    and to the CPU twin, within TOL of the twin on the card; and the
+    gathers' backward through ``masked_gather`` and ``knn_gather`` at the
+    two attention shapes, bit-equal to the CPU twin."""
+    from pytorch3d_pointops_tpu_torch.kernels import fps as kf
+    from pytorch3d_pointops_tpu_torch.kernels import knn as kk
+    from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
+    from pytorch3d_pointops_tpu_torch.ops import knn_gather, masked_gather
+    from pytorch3d_pointops_tpu_torch.ops.knn import _apply_pad_conventions
+
+    dev = xyz.device
+    plan = model.plan(xyz, lengths)
+
+    def ints(values):
+        return torch.tensor(values, dtype=torch.int64, device=dev)
+
+    block_cap, resident_cap = kf.fps_limits(3, dev)
+    fps_lines = []
+    for i in range(1, len(plan)):
+        above, level = plan[i - 1], plan[i]
+        pts, lens, Ks = above.xyz, ints(above.lengths), ints(level.lengths)
+        starts, max_K, P = torch.zeros_like(lens), max(level.lengths), pts.shape[1]
+        ref = kf.fps_plain(pts, lens, Ks, starts, max_K)
+        require(torch.equal(level.fps_idx, ref),
+                f"point transformer level {i + 1} FPS: the plan differs from fps_plain")
+        runs = [w for w, cap in ((kf.fps_batched, block_cap), (kf.fps_resident, resident_cap),
+                                 (kf.fps_streaming, P)) if P <= cap]
+        for wrapper in runs:
+            require(torch.equal(wrapper(pts, lens, Ks, starts, max_K), ref),
+                    f"point transformer level {i + 1} FPS {wrapper.__name__} "
+                    f"{above.lengths} K={level.lengths}: idx")
+        fps_lines.append(f"{above.lengths} K={level.lengths} "
+                         f"({', '.join(w.__name__ for w in runs)})")
+    print(f"  point transformer FPS, equal to fps_plain and the plan: {'; '.join(fps_lines)}")
+
+    def hold_knn(fine, coarse, K, what):
+        l1, l2 = ints(fine.lengths), ints(coarse.lengths)
+        got = _apply_pad_conventions(*kk.knn_topk_cuda(fine.xyz, coarse.xyz, l2, K, 2),
+                                     l1, l2, K, fine.xyz.shape[1])
+        want = _apply_pad_conventions(*kk.knn_topk_plain(fine.xyz, coarse.xyz, l2, K, 2),
+                                      l1, l2, K, fine.xyz.shape[1])
+        note_err("knn", (got[0] - want[0]).abs().max().item())
+        require(torch.equal(got[0], want[0]), f"point transformer knn {what}: dists")
+        require(torch.equal(got[1], want[1]), f"point transformer knn {what}: idx")
+        return sum(a * b for a, b in zip(fine.lengths, coarse.lengths))
+
+    pairs = 0
+    for i, level in enumerate(plan):
+        pairs += hold_knn(level, level, model.nsample[i], f"level {i + 1} self")
+        if i:
+            pairs += hold_knn(level, plan[i - 1], model.nsample[i], f"level {i + 1} down")
+        if i + 1 < len(plan):
+            pairs += hold_knn(level, plan[i + 1], 3, f"level {i + 1} up")
+    print(f"  point transformer knn, K = {sorted(set(model.nsample))} and 3 over "
+          f"{pairs:.4g} pairs: dists and idx equal to the plain twin")
+
+    first, last = plan[0], plan[-1]
+    scatters = (
+        ("level 1 attention k and v", first.nbr_idx, 2 * model.planes[0], len(first.pos)),
+        (f"level {len(plan)} attention k and v", last.nbr_idx, 2 * model.planes[-1],
+         len(last.pos)),
+        ("level 2 TransitionDown", plan[1].down_idx, model.planes[0], len(first.pos)),
+        ("level 1 TransitionUp", first.up_idx, model.planes[0], len(plan[1].pos)),
+    )
+    for label, index, C, P2 in scatters:
+        idx = index.reshape(1, -1)
+        contrib = torch.randn((1, idx.shape[1], C), device=dev)
+        what = f"point transformer {label}: {idx.shape[1]} entries into {P2} rows x {C}"
+        out = hold_scatter(ks.scatter_add_rows, idx, contrib, P2, what)
+        err = (out - ks.scatter_add_plain(idx, contrib, P2)).abs().max().item()
+        note_err("rows", err)
+        require(err <= TOL, f"{what}: err {err}")
+        print(f"  {what} ({ks.scatter_plan(1, idx.shape[1], P2, C)}): bit-equal run to "
+              f"run and to the CPU twin, max abs err {err:.3g} to the twin on the card")
+    for label, index, C, P2 in scatters[:2]:
+        for gather in (masked_gather, knn_gather):
+            x = torch.randn((1, P2, C), device=dev, requires_grad=True)
+            out = gather(x, index[None])
+            require(torch.equal(out[0], x.detach()[0][index]),
+                    f"point transformer {label} {gather.__name__}: forward")
+            g = torch.randn_like(out)
+            out.backward(g)
+            want = ks.scatter_add_plain(index.reshape(1, -1).cpu(),
+                                        g.reshape(1, -1, C).cpu(), P2)
+            require(torch.equal(x.grad.cpu(), want),
+                    f"point transformer {label} {gather.__name__}: backward not bit-equal "
+                    "to the CPU twin")
+    print("  point transformer gathers' backward (masked_gather, knn_gather) at C = "
+          f"{scatters[0][2]} and {scatters[1][2]}: bit-equal to the CPU twin")
+
+
+def phase3c(model, xyz, rgb, labels, lengths, plain_path):
+    """The Point Transformer's training step (plan, forward, cross-entropy,
+    backward; no optimiser) as a main path with its launch counts and no
+    host sync, two steps bit-equal, and the step against the plain path on
+    the card with the scatter's twin on CPU copies (the kernels' sums): the
+    plan, logits, loss and every gradient bit-equal."""
+    import torch.nn.functional as F
+
+    from pytorch3d_pointops_tpu_torch import tracing
+    from pytorch3d_pointops_tpu_torch.kernels import fps as kf
+    from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        plan = model.plan(xyz, lengths)
+        logits = model(xyz, rgb, lengths, plan)
+        loss = F.cross_entropy(logits, labels)
+        loss.backward()
+        return plan, logits, loss, {n: p.grad for n, p in model.named_parameters()}
+
+    counters = ("knn_topk_cuda", "fps_batched", "fps_resident", "fps_streaming",
+                "scatter_add_rows", "ball_query_cuda", "chamfer_nn_cuda", "scatter_add_k1")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    # -- the Point Transformer main path: nothing but what a user would call --
+    with no_host_sync():
+        plan, logits, loss, grads = step()
+    launches = launch_counts(counters)
+    # -- end of the Point Transformer main path --
+    syncs = tracing.counts("sync.")
+    peak = torch.cuda.max_memory_allocated()
+    levels = len(plan)
+    block_cap = kf.fps_limits(3, xyz.device)[0]
+    sampled = [plan[i].xyz.shape[1] for i in range(levels - 1)]
+    # Each level's blocks and decoder block gather k and v; each
+    # TransitionDown and TransitionUp but the coarsest one gathers once.
+    want = {"fps_batched": sum(P <= block_cap for P in sampled),
+            "fps_resident": sum(P > block_cap for P in sampled), "fps_streaming": 0,
+            "scatter_add_rows": sum(model.blocks) + 3 * levels - 2,
+            "ball_query_cuda": 0, "chamfer_nn_cuda": 0, "scatter_add_k1": 0}
+    print(f"phase 3c: point transformer {lengths}, {sum(plan[0].lengths)} points: "
+          f"launches {json.dumps(launches)}; host syncs {syncs}; peak "
+          f"{peak / 2**30:.2f} GiB")
+    require({k: launches[k] for k in want} == want,
+            f"point transformer launches {launches}, not {want}")
+    require(launches["knn_topk_cuda"] >= 3 * levels - 2,
+            f"point transformer: {launches['knn_topk_cuda']} KNN launches for "
+            f"{3 * levels - 2} KNN calls")
+    require(not syncs, f"point transformer step synced the host: {syncs}")
+    step_ms = wall_ms(step, reps=3)
+    print(f"  point transformer step (plan, forward, loss, backward) median {step_ms:.3f} "
+          f"ms; loss {loss.item():.6g}")
+    again = step()
+    require(torch.equal(again[1], logits)
+            and all(torch.equal(again[3][n], g) for n, g in grads.items()),
+            "point transformer step not bit-equal run to run")
+
+    def cpu_scatter(idx, contrib, P2):
+        return ks.scatter_add_plain(idx.cpu(), contrib.cpu(), P2).to(contrib.device)
+
+    with plain_path():
+        ks.scatter_add_rows = cpu_scatter
+        p_plan, p_logits, p_loss, p_grads = step()
+    for i, (a, b) in enumerate(zip(plan, p_plan)):
+        for name in ("fps_idx", "down_idx", "nbr_idx", "up_idx", "up_dist"):
+            x, y = getattr(a, name), getattr(b, name)
+            require((x is None and y is None) or torch.equal(x, y),
+                    f"point transformer level {i + 1} {name}: differs from the plain path")
+    require(torch.equal(logits, p_logits) and torch.equal(loss, p_loss),
+            "point transformer logits or loss differ from the plain path")
+    differ = [n for n, g in grads.items() if not torch.equal(g, p_grads[n])]
+    require(not differ, f"point transformer gradients differ from the plain path: {differ}")
+    print("  point transformer vs the plain path (scatter on CPU copies): plan, logits, "
+          f"loss and all {len(grads)} gradients bit-equal; two steps bit-equal")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2257,6 +2492,18 @@ def main() -> int:
                     f"{wrapper.__name__} D={D} P={P} {kf.plan_name(pl)}: idx")
         fps_tiers.append(f"D={D} P={P}: {plan.tier} t{plan.threads}/s{plan.slots}")
     print(f"  fps grid tiers, every run equal to fps_plain: {'; '.join(fps_tiers)}")
+    # The Point Transformer cell's shapes: its model at published widths
+    # (seeded weights, training mode) on four generated rooms of the cell's
+    # lengths; its own generator, so the other phases' inputs do not move.
+    from pytorch3d_pointops_tpu_torch.models import PointTransformerSeg
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(args.seed)
+        pt_model = PointTransformerSeg().to(dev).train()
+    pt_xyz, pt_rgb, pt_labels = room_clouds(np.random.default_rng(args.seed + 2), PT_LENGTHS,
+                                            max(PT_LENGTHS))
+    pt_xyz, pt_rgb, pt_labels = T(pt_xyz), T(pt_rgb), T(pt_labels, torch.int64)
+    pt_kernels(pt_model, pt_xyz, PT_LENGTHS, note_err)
     print("phase 2: every kernel agrees with its plain twin "
           f"(max abs err {json.dumps({k: v['err'] for k, v in stats.items()})})")
 
@@ -2518,6 +2765,10 @@ def main() -> int:
                            T(np.array([0]), torch.int64), K)
         require(torch.equal(big_idx[label], ref), f"FPS {label}: idx differ from plain")
     print("  large-cloud FPS vs plain: idx equal (1M K=1024, 4M K=512)")
+
+    # ---------------- phase 3c: the Point Transformer's step ----------------
+    phase3c(pt_model, pt_xyz, pt_rgb, pt_labels, PT_LENGTHS, plain_path)
+    del pt_model, pt_xyz, pt_rgb, pt_labels
 
     # ---------------- phase 4: Morton sorting, config 4, the last ops ----------------
     cases = phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,

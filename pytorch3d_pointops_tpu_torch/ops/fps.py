@@ -22,7 +22,7 @@ import torch
 from .. import tracing
 from ..kernels import fps as _fps
 from .knn import _lengths
-from .utils import masked_gather
+from .utils import host_ints, masked_gather
 
 
 def _normalize_K(K, N: int, device) -> Tuple[torch.Tensor, int]:
@@ -46,7 +46,7 @@ def _normalize_K(K, N: int, device) -> Tuple[torch.Tensor, int]:
     if K_np.shape[0] != N:
         raise ValueError("K and points must have the same batch dimension")
     max_K = max(int(K_np.max()), 0) if K_np.size else 0
-    return torch.as_tensor(K_np).to(device), max_K
+    return host_ints(K_np, device), max_K
 
 
 def route(points: torch.Tensor):

@@ -1,4 +1,5 @@
-"""Op-level helpers: ``masked_gather``, ``wmean``, ``get_point_covariances``.
+"""Op-level helpers: ``masked_gather``, ``wmean``, ``get_point_covariances``,
+and ``host_ints`` for the ops and models of the package.
 
 The port of ``pytorch3d_pointops_tpu/ops/utils.py``. ``masked_gather``'s
 backward is the deterministic segment-sum of ``kernels/scatter.py`` (through
@@ -15,6 +16,16 @@ import torch
 
 from .. import tracing
 from .knn import _Gather, knn_points
+
+
+def host_ints(values, device) -> torch.Tensor:
+    """Host ints as an int64 tensor on ``device``. A copy to a card goes
+    through pinned memory, so that it does not wait for the card's queue to
+    drain as a copy from pageable memory does."""
+    t = torch.as_tensor(values, dtype=torch.int64)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 @tracing.spanned("masked_gather")

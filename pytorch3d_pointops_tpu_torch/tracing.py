@@ -8,12 +8,19 @@ Spans mark the port's layers (``PERF.md`` §3): each public op and
 ``fps``), and the stages of the PointNet++ model (``models/pointnet2.py``):
 ``pointnet2.plan`` (FPS and ball query of both sampled levels, their op
 spans inside it), ``pointnet2.group``, ``pointnet2.mlp`` and
-``pointnet2.pool`` once a set-abstraction level, and ``pointnet2.head``.
+``pointnet2.pool`` once a set-abstraction level, and ``pointnet2.head``,
+and those of the Point Transformer (``models/point_transformer.py``):
+``point_transformer.plan`` (FPS and the KNN of every level, their op spans
+inside it), ``point_transformer.down`` each ``TransitionDown``,
+``point_transformer.attn`` each attention layer, ``point_transformer.up``
+each ``TransitionUp``, and ``point_transformer.head``.
 Counters name what they count: ``sync.<site>`` each read of tensor values
 to the host (whatever the tensor's device, so a CPU run counts what the
 card would), ``launch.<wrapper>`` each launch of a hand-written kernel,
 ``chamfer.rescan_points`` the points whose nearest-neighbour index the
-chamfer kernel finds by its rescan (N x (P1 + P2) a D = 3 launch).
+chamfer kernel finds by its rescan (N x (P1 + P2) a D = 3 launch),
+``point_transformer.grouped_rows`` the (point, neighbour) rows a Point
+Transformer forward gathers (from the host lengths alone).
 
 Off by default. ``span(name)`` then returns a shared null context after one
 flag read, and ``count(name, n)`` adds to a plain dict under a lock

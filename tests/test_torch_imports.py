@@ -53,6 +53,7 @@ def test_port_imports_no_jax():
         "pytorch3d_pointops_tpu_torch.tracing",
         "pytorch3d_pointops_tpu_torch.models",
         "pytorch3d_pointops_tpu_torch.models.pointnet2",
+        "pytorch3d_pointops_tpu_torch.models.point_transformer",
         "pytorch3d_pointops_tpu_torch.structures.pointclouds",
         "pytorch3d_pointops_tpu_torch.convert",
         "pytorch3d_pointops_tpu_torch._build",
@@ -98,3 +99,13 @@ def test_parallel_exports_the_jax_parallel_names():
         assert callable(getattr(tpar.multihost, name))
     # As in the JAX package, the top level does not export the ring.
     assert not set(tpar.__all__) & set(ppt.__all__)
+
+
+def test_models_export_both_networks_and_their_modules():
+    import pytorch3d_pointops_tpu_torch.models as models
+
+    assert set(models.__all__) == {
+        "PointNet2ClsSSG", "SetAbstraction", "PointTransformerSeg", "PointTransformerBlock",
+        "PointTransformerLayer", "TransitionDown", "TransitionUp"}
+    for name in models.__all__:
+        assert isinstance(getattr(models, name), type), name

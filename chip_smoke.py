@@ -244,7 +244,8 @@ def require(cond, what: str) -> None:
 # The kernel wrappers, by the names of their launch counters
 # (``tracing``'s ``launch.<wrapper>``).
 WRAPPERS = ("knn_topk_cuda", "chamfer_nn_cuda", "scatter_add_rows", "scatter_add_k1",
-            "ball_query_cuda", "fps_batched", "fps_resident", "fps_streaming")
+            "ball_query_cuda", "fps_batched", "fps_clustered", "fps_resident",
+            "fps_streaming")
 
 
 def reset_launches() -> None:
@@ -1592,6 +1593,12 @@ def phase7(inputs6, times6, dev):
     return res[0]["launches"]["+ north-star ring knn K=100 fwd"]
 
 
+# fps_block_kernel<DIM, SLOTS, T, 1>'s (registers, spill bytes), as ptxas
+# reported them before the cluster instances joined the template (CUDA 12,
+# sm_90a, -O3 -fmad=false): phase 1 holds the build to them.
+FPS_BLOCK_PTXAS = {(0, 8, 1024): (40, 0), (0, 16, 1024): (48, 0), (0, 32, 1024): (64, 0),
+                   (3, 8, 256): (58, 0), (3, 16, 256): (96, 0), (3, 16, 512): (96, 0),
+                   (3, 16, 1024): (64, 0)}
 # Phase 8: the kernels each example must launch on the card (by wrapper);
 # the examples with none run for their checks.
 EXAMPLE_KERNELS = {
@@ -1603,7 +1610,7 @@ EXAMPLE_KERNELS = {
     "fps_and_ball_query": ("fps_batched", "ball_query_cuda", "scatter_add_rows"),
     "covariances_demo": ("knn_topk_cuda",),
     "ring_parallel": ("knn_topk_cuda", "chamfer_nn_cuda", "scatter_add_rows"),
-    "performance": ("knn_topk_cuda", "ball_query_cuda", "fps_batched", "fps_resident"),
+    "performance": ("knn_topk_cuda", "ball_query_cuda", "fps_batched", "fps_clustered"),
 }
 # Run again through the plain twins, on the card.
 EXAMPLES_PLAIN = ("knn_and_chamfer", "fps_and_ball_query", "covariances_demo",
@@ -1714,7 +1721,8 @@ def phase9(wrappers, dev):
           f"gradients within {TOL} of their largest entry), {held} of them to the host "
           f"library; largest value differences by family {json.dumps(worst)}; cases "
           f"that launched each kernel {json.dumps(cases)}")
-    require(all(cases[w] for w in wrappers if w not in ("fps_resident", "fps_streaming")),
+    require(all(cases[w] for w in wrappers
+                if w not in ("fps_clustered", "fps_resident", "fps_streaming")),
             f"a kernel the sweep covers never ran: {cases}")
     return cases
 
@@ -1888,6 +1896,7 @@ def pt_kernels(model, xyz, lengths, note_err):
         return torch.tensor(values, dtype=torch.int64, device=dev)
 
     block_cap, resident_cap = kf.fps_limits(3, dev)
+    cluster_cap = kf.cluster_limit(3, dev)
     fps_lines = []
     for i in range(1, len(plan)):
         above, level = plan[i - 1], plan[i]
@@ -1896,8 +1905,9 @@ def pt_kernels(model, xyz, lengths, note_err):
         ref = kf.fps_plain(pts, lens, Ks, starts, max_K)
         require(torch.equal(level.fps_idx, ref),
                 f"point transformer level {i + 1} FPS: the plan differs from fps_plain")
-        runs = [w for w, cap in ((kf.fps_batched, block_cap), (kf.fps_resident, resident_cap),
-                                 (kf.fps_streaming, P)) if P <= cap]
+        runs = [w for w, cap in ((kf.fps_batched, block_cap), (kf.fps_clustered, cluster_cap),
+                                 (kf.fps_resident, resident_cap), (kf.fps_streaming, P))
+                if P <= cap]
         for wrapper in runs:
             require(torch.equal(wrapper(pts, lens, Ks, starts, max_K), ref),
                     f"point transformer level {i + 1} FPS {wrapper.__name__} "
@@ -1982,8 +1992,9 @@ def phase3c(model, xyz, rgb, labels, lengths, plain_path):
         loss.backward()
         return plan, logits, loss, {n: p.grad for n, p in model.named_parameters()}
 
-    counters = ("knn_topk_cuda", "fps_batched", "fps_resident", "fps_streaming",
-                "scatter_add_rows", "ball_query_cuda", "chamfer_nn_cuda", "scatter_add_k1")
+    counters = ("knn_topk_cuda", "fps_batched", "fps_clustered", "fps_resident",
+                "fps_streaming", "scatter_add_rows", "ball_query_cuda", "chamfer_nn_cuda",
+                "scatter_add_k1")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1997,10 +2008,13 @@ def phase3c(model, xyz, rgb, labels, lengths, plain_path):
     levels = len(plan)
     block_cap = kf.fps_limits(3, xyz.device)[0]
     sampled = [plan[i].xyz.shape[1] for i in range(levels - 1)]
-    # Each level's blocks and decoder block gather k and v; each
+    # FPS: the levels above the block cap on the cluster path (2 and 3 at
+    # the cell's sizes), the others on the block kernel, none on the grid
+    # kernel. Each level's blocks and decoder block gather k and v; each
     # TransitionDown and TransitionUp but the coarsest one gathers once.
     want = {"fps_batched": sum(P <= block_cap for P in sampled),
-            "fps_resident": sum(P > block_cap for P in sampled), "fps_streaming": 0,
+            "fps_clustered": sum(P > block_cap for P in sampled),
+            "fps_resident": 0, "fps_streaming": 0,
             "scatter_add_rows": sum(model.blocks) + 3 * levels - 2,
             "ball_query_cuda": 0, "chamfer_nn_cuda": 0, "scatter_add_k1": 0}
     print(f"phase 3c: point transformer {lengths}, {sum(plan[0].lengths)} points: "
@@ -2115,16 +2129,23 @@ def main() -> int:
         with open(fps_log) as f:
             log = f.read()
         # fps_grid_kernel<DIM, SLOTS, THREADS> (csrc/fps.cu launch_grid_plan:
-        # 5 at D=3, 4 at any D) and fps_block_kernel<DIM, SLOTS, THREADS>
-        # (launch_block_plan: 4 at D=3, 3 at any D); DIM 0 is any D.
+        # 5 at D=3, 4 at any D) and fps_block_kernel<DIM, SLOTS, THREADS,
+        # CLUSTER> (launch_block_plan: 4 at D=3, 3 at any D, CLUSTER 1;
+        # FPS_CLUSTER_PLANS: 3 x 4 at D=3, CLUSTER 2-16); DIM 0 is any D.
         fps_inst = {(name, *k): v for name in ("fps_grid_kernel", "fps_block_kernel")
                     for k, v in kernel_instances(log, name).items()}
         print("  fps instances (registers, spill bytes): " + " ".join(
             f"{name[4:-7]}<{','.join(map(str, k))}>:{regs}r{f'+{spill}s' if spill else ''}"
             for (name, *k), (regs, spill) in sorted(fps_inst.items())))
         spilled = [k for k, (_, s) in fps_inst.items() if k[1] == 3 and s]
-        require(len(fps_inst) == 16 and not spilled,
+        require(len(fps_inst) == 28 and not spilled,
                 f"fps instances {sorted(fps_inst)}; D=3 spills: {spilled}")
+        # The one-block instances are the kernel they were before the
+        # cluster path: the same registers and no spill.
+        block1 = {k[1:4]: v for k, v in fps_inst.items()
+                  if k[0] == "fps_block_kernel" and k[4] == 1}
+        require(block1 == FPS_BLOCK_PTXAS,
+                f"fps_block_kernel CLUSTER=1 (registers, spill) {block1}, not {FPS_BLOCK_PTXAS}")
     bq_log = os.path.join(_build.BUILD_DIR, "ball_query.ptxas.log")
     if os.path.exists(bq_log):
         with open(bq_log) as f:
@@ -2492,6 +2513,56 @@ def main() -> int:
                     f"{wrapper.__name__} D={D} P={P} {kf.plan_name(pl)}: idx")
         fps_tiers.append(f"D={D} P={P}: {plan.tier} t{plan.threads}/s{plan.slots}")
     print(f"  fps grid tiers, every run equal to fps_plain: {'; '.join(fps_tiers)}")
+    # The cluster path (kernels/fps.py _cluster_plan): every instance forced
+    # at its capacity (C x threads x 16 points, up to 40,000) on seven
+    # clouds of lengths P, 0, 1, 2, 3, P - 1 and threads x C + 1, per-cloud
+    # K, explicit starts, grid and Gaussian clouds; then, by route: one
+    # cloud of 80,000 points, 12 clouds of 160,000 (more clusters than the
+    # card holds at once: waves), 12 of 80,000 with clusters of 16 forced
+    # (waves), two clouds at the cluster cap and two past it (the grid
+    # kernel), and one cloud at the one-cloud limit and one past it.
+    from pytorch3d_pointops_tpu_torch.ops.fps import ONE_CLOUD_CLUSTER_MAX, route
+
+    cluster_cap = kf.cluster_limit(3, dev)
+    active = kf._cluster_card(0)
+    for t, sl, c in kf.CLUSTER_PLANS:
+        P = min(t * sl * c, 40_000)
+        plan = kf.ClusterPlan(c, t, sl, -(-P // c), 1)
+        for grid in (True, False):
+            gen_pts = (erng.integers(0, 3, size=(7, P, 3)).astype(np.float32) / 8
+                       if grid else erng.normal(size=(7, P, 3)).astype(np.float32))
+            pts = T(gen_pts)
+            lens, Ks, starts = (T(np.array(a), torch.int64) for a in (
+                [P, 0, 1, 2, 3, P - 1, min(P, t * c + 1)], [300, 5, 5, 5, 7, 150, 300],
+                [3, 0, 0, 1, 2, P - 2, 5]))
+            out = kf.fps_clustered(pts, lens, Ks, starts, 300, _plan=plan)
+            require(torch.equal(out, kf.fps_plain(pts, lens, Ks, starts, 300)),
+                    f"fps_clustered {kf.cluster_plan_name(plan)} grid={grid}: idx")
+    cluster_cases = []
+    for N, P, K, want, forced in (
+            (1, 80_000, 1024, "fps_clustered", None),
+            (12, 160_000, 256, "fps_clustered", None),
+            (12, 80_000, 512, "fps_clustered", kf.ClusterPlan(16, 512, 16, 5000, 2)),
+            (2, cluster_cap, 256, "fps_clustered", None),
+            (2, cluster_cap + 1, 256, "fps_resident", None),
+            (1, ONE_CLOUD_CLUSTER_MAX, 256, "fps_clustered", None),
+            (1, ONE_CLOUD_CLUSTER_MAX + 1, 256, "fps_resident", None)):
+        gen = torch.Generator(device=dev).manual_seed(args.seed * 7919 + N * P)
+        pts = torch.randn((N, P, 3), generator=gen, device=dev)
+        lens = T(np.array([P - 13 * i for i in range(N)]), torch.int64)
+        Ks = T(np.array([K - i for i in range(N)]), torch.int64)
+        starts = T(np.array([(P // 3 + i) % (P - 13 * i) for i in range(N)]), torch.int64)
+        wrapper = route(pts)
+        require(wrapper.__name__ == want, f"route({N} x {P}) is {wrapper.__name__}, not {want}")
+        plan = forced or (kf.card_cluster_plan(pts) if want == "fps_clustered" else None)
+        out = wrapper(pts, lens, Ks, starts, K, _plan=plan)
+        require(torch.equal(out, kf.fps_plain(pts, lens, Ks, starts, K)),
+                f"{want} {N} x {P} K={K}: idx")
+        cluster_cases.append(f"{N}x{P} {want}" + (f" ({kf.cluster_plan_name(plan)})"
+                                                  if plan else ""))
+    print(f"  fps cluster instances at their capacity and directed cases, equal to "
+          f"fps_plain (clusters held at once {json.dumps({f'{t}/{sl}/{c}': n for (t, sl, c), n in active.items()})}): "
+          f"{'; '.join(cluster_cases)}")
     # The Point Transformer cell's shapes: its model at published widths
     # (seeded weights, training mode) on four generated rooms of the cell's
     # lengths; its own generator, so the other phases' inputs do not move.

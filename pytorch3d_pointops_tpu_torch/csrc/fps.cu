@@ -7,17 +7,28 @@
 // kernels: fps_pallas_batched (_fps_batched_kernel, many clouds advancing
 // together), fps_pallas (_fps_dense8_kernel, one big cloud held in VMEM) and
 // fps_pallas_chunked (_fps_chunked_kernel, a cloud streamed from HBM every
-// round). Two kernels here back the three entry points:
+// round). Two kernels here back the four entry points:
 //
-// * fps_block_kernel (fps_batched): one block per cloud, under a block plan
-//   (kernels/fps.py _block_plan: T threads with SLOTS slots each). Each
-//   thread keeps its points' min-distances in registers and, at D=3 up to
-//   8192 points, their coordinates too; otherwise the coordinates sit in
-//   shared memory. A round is one block barrier: the warps' best records
-//   {key, coordinates} meet in shared memory, two buffers by the round's
-//   parity, and every warp reduces them itself.
+// * fps_block_kernel<DIM, SLOTS, T, 1> (fps_batched): one block per cloud,
+//   under a block plan (kernels/fps.py _block_plan: T threads with SLOTS
+//   slots each). Each thread keeps its points' min-distances in registers
+//   and, at D=3 up to 8192 points, their coordinates too; otherwise the
+//   coordinates sit in shared memory. A round is one block barrier: the
+//   warps' best records {key, coordinates} meet in shared memory, two
+//   buffers by the round's parity, and every warp reduces them itself.
+// * fps_block_kernel<3, 16, T, CLUSTER> (fps_clustered, CLUSTER in 2, 4, 8,
+//   16): one thread-block cluster per cloud, every cloud at once, for
+//   clouds one block cannot hold (kernels/fps.py _cluster_plan). Block rank
+//   r owns the contiguous slice [r * slice, (r + 1) * slice) of its cloud,
+//   slice = ceil(L / CLUSTER), laid out as one block's cloud. Each round
+//   the block's best record goes from warp 0, lane j, into block j's shared
+//   memory (distributed shared memory, st.async), counted on a transaction
+//   barrier there; every warp of every block waits on its own block's
+//   barrier and reduces the CLUSTER records: the exchange never leaves the
+//   GPC, nothing waits on L2, no barrier spans the cluster in a round, and
+//   no cluster waits on another.
 // * fps_grid_kernel (fps_resident, fps_streaming): one block on every SM,
-//   all on one cloud at a time, for clouds one block cannot hold. Block b
+//   all on one cloud at a time, for clouds one cluster cannot hold. Block b
 //   owns the contiguous slice [b * slice, (b + 1) * slice) of the cloud;
 //   point q of a slice is slot q / T of thread q % T (T threads a block),
 //   so each thread's points ascend. A launch plan (kernels/fps.py
@@ -53,16 +64,23 @@
 // each record among four lines. Records form a ring of two rounds: a block
 // writes round r + 2 only after every block has published round r + 1,
 // which each does after reading round r. A wait that polls 2^22 times sets
-// an error flag and ends the kernel; the host entry point returns an error
-// for it. The launch is cooperative, which is what guarantees that every
-// block is resident while the others wait on it.
+// an error flag and ends the kernel; the host entry point waits for the
+// stream to read it and returns an error for it. The launch is cooperative,
+// which is what guarantees that every block is resident while the others
+// wait on it.
 //
 // Bound on the card: K sequential rounds, each a pass over the cloud with
 // 3*D+2 float32 operations a point (D subtractions, multiplies and adds, a
 // min and a compare) and a reduction whose latency (a block barrier, and
 // one publication through L2) no amount of parallelism hides. The block
-// kernel pays one block barrier a round but uses one SM per cloud; the grid
-// kernel spreads a cloud over every SM and pays the L2 round trip.
+// kernel pays one block barrier a round but uses one SM per cloud; the
+// cluster path adds one hop between SMs a round on up to 16 SMs per cloud,
+// every cloud at once; the grid kernel spreads a cloud over every SM and
+// pays the L2 round trip, cloud after cloud.
+//
+// Keys are unique within a cloud (the index is in them), so the winner of
+// a round is the same whatever the partition of the cloud into blocks,
+// warps and slots: the three kernels select the same points.
 //
 // Ties: the distance to the selected set is not masked for selected points
 // (they sit at 0), so when K exceeds the number of distinct points the
@@ -77,6 +95,7 @@
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
 
 namespace {
 
@@ -175,13 +194,126 @@ __device__ __forceinline__ float sq_dist(const float* x, int xs,
 
 // ---- the block kernel -----------------------------------------------------
 
-// One block of T threads per cloud; point q is slot q / T of thread q % T,
-// and a plan (kernels/fps.py _block_plan) has T * SLOTS >= P. Each thread
-// keeps its SLOTS min-distances in registers (slots past the cloud at -inf)
-// and, at D=3 where reg_coords holds, its points' coordinates too;
-// otherwise the coordinates sit in shared memory as [d][q], with a row of
-// SLOTS * T points at D=3 (every slot staged, so the pass tests nothing) or
-// P at any D (the slots past the cloud are masked by its length).
+// The cluster path's exchange (sm_90 thread-block clusters): this block's
+// rank in its cluster; the shared::cluster address of a shared memory
+// location in block `rank`; a store into a peer block's shared memory that
+// counts its bytes on a transaction barrier (mbarrier) there; and the
+// barrier's setup (one arrival a phase), the arrival that announces a
+// phase's bytes, and the wait for a phase of the given parity, which
+// acquires what the stores counted on it wrote.
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned smem_address(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ unsigned peer_address(const void* p, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(smem_address(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void store_peer(unsigned at, uint4 v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+      ::"r"(at), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void store_peer(unsigned at, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               ::"r"(at), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+  asm volatile("{\n\t.reg .pred p;\n\t"
+               "WAIT_%=:\n\t"
+               "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n\t"
+               "@!p bra WAIT_%=;\n\t}" ::"r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// A cluster block's records, two buffers by the round's parity: slot j
+// holds block j's best {key (low, high word), x, y} and z; and a
+// transaction barrier for each buffer. They sit in dynamic shared memory
+// after the coordinates.
+constexpr unsigned kClusterRecord = 20;  // bytes of a record: kxy and z
+
+template <int CLUSTER>
+struct ClusterRecords {
+  uint4 kxy[2][CLUSTER];
+  float z[2][CLUSTER];
+  unsigned long long bar[2];
+};
+
+// Dynamic shared memory of a block kernel instance: where CLUSTER = 1, the
+// coordinates that registers do not hold; where CLUSTER > 1, every slot's
+// coordinates (the winners' lookups read them), then the records.
+template <int DIM, int SLOTS, int T, int CLUSTER>
+__host__ __device__ constexpr size_t block_coord_floats(int D, int P) {
+  return CLUSTER > 1 ? (size_t)D * SLOTS * T
+         : reg_coords(DIM, SLOTS, T) ? 0
+                                     : (size_t)D * (DIM > 0 ? SLOTS * T : P);
+}
+
+template <int DIM, int SLOTS, int T, int CLUSTER>
+size_t block_smem(int D, int P) {
+  return block_coord_floats<DIM, SLOTS, T, CLUSTER>(D, P) * sizeof(float) +
+         (CLUSTER > 1 ? sizeof(ClusterRecords<CLUSTER>) : 0);
+}
+
+// The cluster path's pass over a block's first U slots: fold the selected
+// point into each min-distance and keep this thread's first maximum, by a
+// strict compare from bv = -1 (below every point's min-distance, above the
+// -inf of a slot past the slice). Exactly the slots a slice fills, with no
+// branch between them.
+template <int U, int SLOTS, int T, bool REG>
+__device__ __forceinline__ void cluster_pass(float (&md)[SLOTS],
+                                             const float (&xr)[REG ? SLOTS : 1][3],
+                                             const float* xt, int ld,
+                                             const float* sel, float& bv, int& fs) {
+#pragma unroll
+  for (int s = 0; s < U; ++s) {
+    float dist;
+    if constexpr (REG) {
+      dist = sq_dist<3>(xr[s], 1, sel, 1, 3);
+    } else {
+      dist = sq_dist<3>(xt + s * T, ld, sel, 1, 3);
+    }
+    const float m = fminf(dist, md[s]);
+    md[s] = m;
+    if (m > bv) {
+      bv = m;
+      fs = s;
+    }
+  }
+}
+
+// CLUSTER = 1: one block of T threads per cloud; point q is slot q / T of
+// thread q % T, and a plan (kernels/fps.py _block_plan) has T * SLOTS >= P.
+// Each thread keeps its SLOTS min-distances in registers (slots past the
+// cloud at -inf) and, at D=3 where reg_coords holds, its points'
+// coordinates too; otherwise the coordinates sit in shared memory as
+// [d][q], with a row of SLOTS * T points at D=3 (every slot staged, so the
+// pass tests nothing) or P at any D (the slots past the cloud are masked by
+// its length).
 //
 // A round: every thread folds the selected point into its min-distances,
 // keeps its first maximum and that point's coordinates; each warp reduces
@@ -193,11 +325,37 @@ __device__ __forceinline__ float sq_dist(const float* x, int xs,
 // warp has passed the barrier of round r + 1, which comes after its reads
 // of round r. At any D the records carry the key alone, and the winner's
 // coordinates are read from shared memory.
-template <int DIM, int SLOTS, int T>
+//
+// CLUSTER > 1 (D=3 only): cluster n = blockIdx.x / CLUSTER takes cloud n,
+// and its block of rank r holds the slice [r * slice, (r + 1) * slice) as
+// the block above holds a cloud (a plan with T * SLOTS >= slice), with a
+// copy of the coordinates in shared memory; its pass runs over the
+// `slots` = ceil(slice points / T) slots the slice fills (cluster_pass,
+// picked by a switch on slots), and the winner's coordinates come from the
+// copy. A round: the warps' bests meet in shared memory at one block
+// barrier, as above; warp 0 reduces them and its lane j < CLUSTER stores
+// the block's record into slot rank of the round's buffer in block j
+// (st.async, counted on block j's transaction barrier for that buffer);
+// every warp of every block waits on its own block's barrier until all
+// CLUSTER records of the round have landed, and reduces them. No barrier
+// spans the cluster in a round, and no cluster waits on another: one whose
+// cloud ends early exits.
+//
+// Why two buffers suffice: a block stores round r + 2's record into a
+// peer only after its wait of round r + 1 saw that peer's record of round
+// r + 1, which the peer stored after every one of its warps had read round
+// r (they meet at the peer's block barrier of round r + 1 first); and
+// round r + 2's bytes reach a barrier only after its phase of round r
+// completed. One cluster barrier, after the transaction barriers are set
+// up and before any store into a peer, waits until every block of the
+// cluster runs; a block exits only after its last wait, when no peer
+// stores into it any more.
+template <int DIM, int SLOTS, int T, int CLUSTER>
 __global__ void __launch_bounds__(T, 1) fps_block_kernel(
     const float* __restrict__ points, const int64_t* __restrict__ lengths,
     const int64_t* __restrict__ Ks, const int64_t* __restrict__ starts, int P,
     int D, int max_K, int64_t* __restrict__ out) {
+  static_assert(CLUSTER == 1 || (DIM == 3 && SLOTS == 16), "the cluster path runs at D=3");
   constexpr int kD = DIM > 0 ? DIM : 1;
   constexpr int kWarps = T / 32;
   constexpr bool kRegCoords = reg_coords(DIM, SLOTS, T);
@@ -207,13 +365,25 @@ __global__ void __launch_bounds__(T, 1) fps_block_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int n = blockIdx.x;
+  const int n = blockIdx.x / CLUSTER;
   const Cloud c = cloud_of(lengths, Ks, starts, n, P, max_K);
   int64_t* o = out + (int64_t)n * max_K;
-  write_pads(o, c, max_K);
+  unsigned rank = 0;
+  if constexpr (CLUSTER > 1) rank = cluster_rank();
+  if (rank == 0) write_pads(o, c, max_K);
   if (c.k_n <= 1) return;
 
   const float* pn = points + (int64_t)n * P * D;
+  // This block's part of the cloud: points [p0, p0 + cnt) of it, read from
+  // px (the whole cloud where CLUSTER = 1).
+  int p0 = 0, cnt = c.L, slots = SLOTS;
+  if constexpr (CLUSTER > 1) {
+    const int slice = (c.L + CLUSTER - 1) / CLUSTER;
+    p0 = min((int)rank * slice, c.L);
+    cnt = min(p0 + slice, c.L) - p0;
+    slots = (cnt + T - 1) / T;
+  }
+  const float* px = pn + (int64_t)p0 * kD;
   const int ld = DIM > 0 ? SLOTS * T : P;  // row stride of xs
   float md[SLOTS];
   float xr[kRegCoords ? SLOTS : 1][kD];
@@ -223,12 +393,13 @@ __global__ void __launch_bounds__(T, 1) fps_block_kernel(
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s) {
       const int q = s * T + tid;
-      md[s] = q < c.L ? INFINITY : -INFINITY;
+      md[s] = q < cnt ? INFINITY : -INFINITY;
 #pragma unroll
       for (int d = 0; d < kD; ++d) {
-        const float v = q < c.L ? pn[(int64_t)q * kD + d] : 0.f;
+        const float v = q < cnt ? px[(int64_t)q * kD + d] : 0.f;
         if constexpr (kRegCoords) {
           xr[s][d] = v;
+          if constexpr (CLUSTER > 1) xs[d * ld + q] = v;
         } else {
           xs[d * ld + q] = v;
         }
@@ -245,62 +416,143 @@ __global__ void __launch_bounds__(T, 1) fps_block_kernel(
     for (int s = 0; s < SLOTS; ++s) md[s] = s * T + tid < c.L ? INFINITY : -INFINITY;
     __syncthreads();
   }
+  auto& recs = *reinterpret_cast<ClusterRecords<CLUSTER>*>(
+      xs + block_coord_floats<DIM, SLOTS, T, CLUSTER>(D, P));
+  unsigned peer_kxy = 0, peer_z = 0, peer_bar = 0;  // slot rank of buffer 0 in block `lane`
+  if constexpr (CLUSTER > 1) {
+    const unsigned j = lane < CLUSTER ? lane : 0;
+    peer_kxy = peer_address(&recs.kxy[0][rank], j);
+    peer_z = peer_address(&recs.z[0][rank], j);
+    peer_bar = peer_address(&recs.bar[0], j);
+    if (tid == 0) {
+      bar_init(smem_address(&recs.bar[0]));
+      bar_init(smem_address(&recs.bar[1]));
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    cluster_barrier();  // every block of the cluster runs, its barriers set up
+  }
 
   int last = c.start;
   for (int r = 1; r < c.k_n; ++r) {
-    // Fold the selected point in; keep this thread's first maximum.
-    float bv = 0.f;  // every min-distance of the cloud is >= 0
-#pragma unroll
-    for (int s = 0; s < SLOTS; ++s) {
-      if (DIM == 0 && s * T + tid >= c.L) continue;  // the length mask
-      float dist;
-      if constexpr (kRegCoords) {
-        dist = sq_dist<DIM>(xr[s], 1, sel, 1, D);
-      } else if constexpr (DIM > 0) {
-        dist = sq_dist<DIM>(xs + s * T + tid, ld, sel, 1, D);
-      } else {
-        dist = sq_dist<DIM>(xs + s * T + tid, ld, xs + last, ld, D);
+    if constexpr (CLUSTER > 1) {
+      const int buf = r & 1;
+      const unsigned bar = smem_address(&recs.bar[buf]);
+      if (tid == 0) bar_expect(bar, CLUSTER * kClusterRecord);
+      // Fold the selected point in; keep this thread's first maximum and
+      // that point's coordinates.
+      float bv = -1.f;
+      int fs = -1;
+      switch (slots) {
+#define FPS_SLOTS(U)                                                          \
+  case U:                                                                     \
+    if constexpr (U <= SLOTS)                                                 \
+      cluster_pass<U, SLOTS, T, kRegCoords>(md, xr, xs + tid, ld, sel, bv, fs); \
+    break;
+        FPS_SLOTS(1) FPS_SLOTS(2) FPS_SLOTS(3) FPS_SLOTS(4)
+        FPS_SLOTS(5) FPS_SLOTS(6) FPS_SLOTS(7) FPS_SLOTS(8)
+        FPS_SLOTS(9) FPS_SLOTS(10) FPS_SLOTS(11) FPS_SLOTS(12)
+        FPS_SLOTS(13) FPS_SLOTS(14) FPS_SLOTS(15) FPS_SLOTS(16)
+#undef FPS_SLOTS
       }
-      md[s] = fminf(dist, md[s]);
-      bv = fmaxf(bv, md[s]);
-    }
-    int fs = -1;  // its slot; none if the thread holds no point
-    float cx[kD];
+      float cx[kD];
 #pragma unroll
-    for (int d = 0; d < kD; ++d) cx[d] = 0.f;
+      for (int d = 0; d < kD; ++d) cx[d] = fs >= 0 ? xs[d * ld + fs * T + tid] : 0.f;
+      // The warp's best lane (every lane of a warp that holds no point)
+      // writes the warp's record; warp 0 reduces the block's and stores it
+      // into every block of the cluster.
+      unsigned long long key = fs >= 0 ? key_of(bv, p0 + fs * T + tid) : 0ull;
+      const unsigned long long wk = warp_max_u64(key);
+      if (key == wk) {
+        s_key[buf][warp] = wk;
 #pragma unroll
-    for (int s = SLOTS - 1; s >= 0; --s) {
-      if (md[s] == bv) {
-        fs = s;
-        if constexpr (kRegCoords) {
+        for (int d = 0; d < kD; ++d) s_x[buf][d][warp] = cx[d];
+      }
+      __syncthreads();
+      if (warp == 0) {
+        key = lane < kWarps ? s_key[buf][lane] : 0ull;
 #pragma unroll
-          for (int d = 0; d < kD; ++d) cx[d] = xr[s][d];
+        for (int d = 0; d < kD; ++d) cx[d] = lane < kWarps ? s_x[buf][d][lane] : 0.f;
+        warp_max_record<DIM>(key, cx);
+        if (lane < CLUSTER) {
+          const unsigned peer = peer_bar + buf * (unsigned)sizeof(unsigned long long);
+          store_peer(peer_kxy + buf * CLUSTER * (unsigned)sizeof(uint4),
+                     make_uint4((unsigned)key, (unsigned)(key >> 32),
+                                __float_as_uint(cx[0]), __float_as_uint(cx[1])), peer);
+          store_peer(peer_z + buf * CLUSTER * (unsigned)sizeof(float), cx[2], peer);
         }
       }
-    }
-    if constexpr (DIM > 0 && !kRegCoords) {
-      if (fs >= 0) {
+      // Every warp: the CLUSTER records of the round, a lane each.
+      bar_wait(bar, ((r - 1) >> 1) & 1);
+      key = 0ull;
 #pragma unroll
-        for (int d = 0; d < kD; ++d) cx[d] = xs[d * ld + fs * T + tid];
+      for (int d = 0; d < kD; ++d) cx[d] = 0.f;
+      if (lane < CLUSTER) {
+        const uint4 e = recs.kxy[buf][lane];
+        key = ((unsigned long long)e.y << 32) | e.x;
+        cx[0] = __uint_as_float(e.z);
+        cx[1] = __uint_as_float(e.w);
+        cx[2] = recs.z[buf][lane];
       }
+      warp_max_record<DIM>(key, cx);
+      last = (int)(0xFFFFFFFFu - (unsigned)key);
+#pragma unroll
+      for (int d = 0; d < kD; ++d) sel[d] = cx[d];
+      if (rank == 0 && tid == 0) o[r] = last;
+    } else {
+      // Fold the selected point in; keep this thread's first maximum.
+      float bv = 0.f;  // every min-distance of the cloud is >= 0
+#pragma unroll
+      for (int s = 0; s < SLOTS; ++s) {
+        if (DIM == 0 && s * T + tid >= c.L) continue;  // the length mask
+        float dist;
+        if constexpr (kRegCoords) {
+          dist = sq_dist<DIM>(xr[s], 1, sel, 1, D);
+        } else if constexpr (DIM > 0) {
+          dist = sq_dist<DIM>(xs + s * T + tid, ld, sel, 1, D);
+        } else {
+          dist = sq_dist<DIM>(xs + s * T + tid, ld, xs + last, ld, D);
+        }
+        md[s] = fminf(dist, md[s]);
+        bv = fmaxf(bv, md[s]);
+      }
+      int fs = -1;  // its slot; none if the thread holds no point
+      float cx[kD];
+#pragma unroll
+      for (int d = 0; d < kD; ++d) cx[d] = 0.f;
+#pragma unroll
+      for (int s = SLOTS - 1; s >= 0; --s) {
+        if (md[s] == bv) {
+          fs = s;
+          if constexpr (kRegCoords) {
+#pragma unroll
+            for (int d = 0; d < kD; ++d) cx[d] = xr[s][d];
+          }
+        }
+      }
+      if constexpr (DIM > 0 && !kRegCoords) {
+        if (fs >= 0) {
+#pragma unroll
+          for (int d = 0; d < kD; ++d) cx[d] = xs[d * ld + fs * T + tid];
+        }
+      }
+      unsigned long long key = fs >= 0 ? key_of(bv, fs * T + tid) : 0ull;
+      warp_max_record<DIM>(key, cx);
+      const int buf = r & 1;
+      if (lane == 0) {
+        s_key[buf][warp] = key;
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) s_x[buf][d][warp] = cx[d];
+      }
+      __syncthreads();
+      key = lane < kWarps ? s_key[buf][lane] : 0ull;
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) cx[d] = lane < kWarps ? s_x[buf][d][lane] : 0.f;
+      warp_max_record<DIM>(key, cx);
+      last = (int)(0xFFFFFFFFu - (unsigned)key);
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) sel[d] = cx[d];
+      if (tid == 0) o[r] = last;
     }
-    unsigned long long key = fs >= 0 ? key_of(bv, fs * T + tid) : 0ull;
-    warp_max_record<DIM>(key, cx);
-    const int buf = r & 1;
-    if (lane == 0) {
-      s_key[buf][warp] = key;
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) s_x[buf][d][warp] = cx[d];
-    }
-    __syncthreads();
-    key = lane < kWarps ? s_key[buf][lane] : 0ull;
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) cx[d] = lane < kWarps ? s_x[buf][d][lane] : 0.f;
-    warp_max_record<DIM>(key, cx);
-    last = (int)(0xFFFFFFFFu - (unsigned)key);
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) sel[d] = cx[d];
-    if (tid == 0) o[r] = last;
   }
 }
 
@@ -603,17 +855,11 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int DIM, int SLOTS, int T>
-cudaError_t launch_block(const float* points, const int64_t* lengths,
-                         const int64_t* Ks, const int64_t* starts, int N,
-                         int P, int D, int max_K, int64_t* out,
-                         cudaStream_t stream) {
-  auto kernel = fps_block_kernel<DIM, SLOTS, T>;
-  // The coordinates registers do not hold, as fps_block_kernel lays them out.
-  const size_t smem = reg_coords(DIM, SLOTS, T)
-                          ? 0
-                          : (size_t)D * (DIM > 0 ? SLOTS * T : P) * sizeof(float);
-  if (P > SLOTS * T) return cudaErrorInvalidValue;
+// The block kernel's launch attributes: its dynamic shared memory (within
+// the budget) and, past 8 blocks a cluster, the non-portable cluster size.
+template <int DIM, int SLOTS, int T, int CLUSTER>
+cudaError_t prepare_block(size_t smem) {
+  auto kernel = fps_block_kernel<DIM, SLOTS, T, CLUSTER>;
   if (smem > 0) {
     int budget = 0;
     cudaError_t err = (cudaError_t)smem_budget(&budget);
@@ -622,8 +868,59 @@ cudaError_t launch_block(const float* points, const int64_t* lengths,
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<N, T, smem, stream>>>(points, lengths, Ks, starts, P, D, max_K, out);
+  if (CLUSTER > 8) {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  return cudaSuccess;
+}
+
+// A launch of `clusters` clusters of CLUSTER blocks.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int clusters, int cluster, int threads, size_t smem, cudaStream_t stream) {
+    cfg.gridDim = dim3(clusters * cluster);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <int DIM, int SLOTS, int T, int CLUSTER>
+cudaError_t launch_block(const float* points, const int64_t* lengths,
+                         const int64_t* Ks, const int64_t* starts, int N,
+                         int P, int D, int max_K, int64_t* out,
+                         cudaStream_t stream) {
+  auto kernel = fps_block_kernel<DIM, SLOTS, T, CLUSTER>;
+  const size_t smem = block_smem<DIM, SLOTS, T, CLUSTER>(D, P);
+  if ((P + CLUSTER - 1) / CLUSTER > SLOTS * T) return cudaErrorInvalidValue;
+  cudaError_t err = prepare_block<DIM, SLOTS, T, CLUSTER>(smem);
+  if (err != cudaSuccess) return err;
+  if constexpr (CLUSTER > 1) {
+    ClusterLaunch l(N, CLUSTER, T, smem, stream);
+    err = cudaLaunchKernelEx(&l.cfg, kernel, points, lengths, Ks, starts, P, D, max_K, out);
+    if (err != cudaSuccess) return err;
+  } else {
+    kernel<<<N, T, smem, stream>>>(points, lengths, Ks, starts, P, D, max_K, out);
+  }
   return cudaGetLastError();
+}
+
+// The clusters of CLUSTER blocks of an instance that the card holds at once.
+template <int SLOTS, int T, int CLUSTER>
+cudaError_t active_clusters(int* count) {
+  const size_t smem = block_smem<3, SLOTS, T, CLUSTER>(3, 1);
+  cudaError_t err = prepare_block<3, SLOTS, T, CLUSTER>(smem);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch l(1, CLUSTER, T, smem, nullptr);
+  return cudaOccupancyMaxActiveClusters(
+      count, (const void*)fps_block_kernel<3, SLOTS, T, CLUSTER>, &l.cfg);
 }
 
 // The block plans: at D=3, coordinates in registers up to 8192 points (256
@@ -636,8 +933,8 @@ cudaError_t launch_block_plan(const float* points, const int64_t* lengths,
                               int64_t* out, cudaStream_t stream) {
 #define FPS_BLOCK(S, T)                                                       \
   if (threads == T && slots == S)                                             \
-    return launch_block<DIM, S, T>(points, lengths, Ks, starts, N, P, D, max_K, \
-                                   out, stream);
+    return launch_block<DIM, S, T, 1>(points, lengths, Ks, starts, N, P, D,   \
+                                      max_K, out, stream);
   if constexpr (DIM == 3) {
     FPS_BLOCK(8, 256)
     FPS_BLOCK(16, 256)
@@ -651,6 +948,13 @@ cudaError_t launch_block_plan(const float* points, const int64_t* lengths,
 #undef FPS_BLOCK
   return cudaErrorInvalidValue;
 }
+
+// The cluster instances, in the order of kernels/fps.py CLUSTER_PLANS: each
+// D=3 block plan (a block's slice) under clusters of 2, 4, 8 and 16 blocks.
+#define FPS_CLUSTER_PLANS(X) \
+  X(16, 256, 2) X(16, 256, 4) X(16, 256, 8) X(16, 256, 16) \
+  X(16, 512, 2) X(16, 512, 4) X(16, 512, 8) X(16, 512, 16) \
+  X(16, 1024, 2) X(16, 1024, 4) X(16, 1024, 8) X(16, 1024, 16)
 
 struct GridArgs {
   const float* points;
@@ -753,6 +1057,47 @@ extern "C" int fps_block(const float* points, const int64_t* lengths,
   }
   return launch_block_plan<0>(points, lengths, Ks, starts, N, P, D, max_K,
                               threads, slots, out, s);
+}
+
+// As fps_block, at D=3, with one cluster of `cluster` blocks per cloud, all
+// clouds at once: block r of a cluster owns points [r * slice, (r + 1) *
+// slice) of its cloud, slice = ceil(length / cluster) <= threads * slots,
+// under an instance of FPS_CLUSTER_PLANS. No cooperative launch, no
+// scratch, no wait for the kernel. Returns a cudaError_t.
+extern "C" int fps_cluster(const float* points, const int64_t* lengths,
+                           const int64_t* Ks, const int64_t* starts, int N,
+                           int P, int D, int max_K, int threads, int slots,
+                           int cluster, int64_t* out, void* stream) {
+  if (N <= 0 || max_K <= 0) return cudaSuccess;
+  if (D != 3 || P < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FPS_CLUSTER(S, T, C)                                                  \
+  if (threads == T && slots == S && cluster == C)                            \
+    return launch_block<3, S, T, C>(points, lengths, Ks, starts, N, P, D,     \
+                                    max_K, out, s);
+  FPS_CLUSTER_PLANS(FPS_CLUSTER)
+#undef FPS_CLUSTER
+  return cudaErrorInvalidValue;
+}
+
+// The clusters of each instance of FPS_CLUSTER_PLANS, in that order, that
+// the current device holds at once (cudaOccupancyMaxActiveClusters), 0 for
+// an instance it cannot launch: `active` has 12 ints. Returns a
+// cudaError_t.
+extern "C" int fps_cluster_card(int* active) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int i = 0;
+#define FPS_ACTIVE(S, T, C)                                                   \
+  if (active_clusters<S, T, C>(&active[i]) != cudaSuccess) {                  \
+    active[i] = 0;                                                            \
+    cudaGetLastError();                                                       \
+  }                                                                           \
+  ++i;
+  FPS_CLUSTER_PLANS(FPS_ACTIVE)
+#undef FPS_ACTIVE
+  return cudaSuccess;
 }
 
 // As fps_block, with `blocks` blocks of `threads` threads on one cloud at

@@ -6,7 +6,8 @@ kernel on CUDA tensors and counts each launch in ``tracing``'s
 
 from .ball_query import ball_query_cuda, ball_query_plain, ball_query_points
 from .chamfer import chamfer_nn_bidirectional, chamfer_nn_cuda, chamfer_nn_plain
-from .fps import fps_batched, fps_limits, fps_plain, fps_resident, fps_streaming
+from .fps import (cluster_limit, fps_batched, fps_clustered, fps_limits, fps_plain,
+                  fps_resident, fps_streaming)
 from .knn import knn_topk, knn_topk_cuda, knn_topk_plain
 from .scatter import scatter_add_k1, scatter_add_plain, scatter_add_rows
 
@@ -17,7 +18,9 @@ __all__ = [
     "chamfer_nn_bidirectional",
     "chamfer_nn_cuda",
     "chamfer_nn_plain",
+    "cluster_limit",
     "fps_batched",
+    "fps_clustered",
     "fps_limits",
     "fps_plain",
     "fps_resident",

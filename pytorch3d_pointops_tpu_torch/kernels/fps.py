@@ -1,13 +1,19 @@
 """Iterative farthest point sampling: the Hopper kernels ``csrc/fps.cu`` and
 their plain PyTorch twin.
 
-Three entry points, one per TPU kernel of
+Four entry points, for the three TPU kernels of
 ``pytorch3d_pointops_tpu/kernels/fps_pallas.py``:
 
 * ``fps_batched`` (``fps_pallas_batched``): one block per cloud, the cloud
   held on the SM (registers, and shared memory for the coordinates that
   registers do not hold) under a ``BlockPlan`` that ``_block_plan`` picks
   from P and D; for clouds up to ``fps_limits(...)[0]`` points;
+* ``fps_clustered`` (also ``fps_pallas_batched``'s work, on clouds one
+  block cannot hold): one thread-block cluster of 2 to 16 blocks per
+  cloud, every cloud at once, each block holding a slice of its cloud as
+  ``fps_batched``'s block holds a cloud, under a ``ClusterPlan`` that
+  ``_cluster_plan`` picks from N, P and the clusters the card holds at once
+  (``_cluster_card``); D=3, clouds up to ``cluster_limit(...)``;
 * ``fps_resident`` (``fps_pallas``): every SM on one cloud at a time, the
   cloud held on chip (registers and shared memory) across the SMs; up to
   ``fps_limits(...)[1]``;
@@ -57,6 +63,14 @@ BLOCK_PLANS = {3: ((256, 8), (256, 16), (512, 16), (1024, 16)),
                0: ((1024, 8), (1024, 16), (1024, 32))}
 _RECORD = 4           # 64-bit words a grid block publishes a round (kRecord)
 _COPIES = 4           # copies of each record (kCopies)
+# The cluster path (D=3): blocks a cluster; the (threads, 16 slots) of a
+# block, each holding a slice of up to threads * 16 points (coordinates in
+# registers up to 8192 points, in shared memory beyond); and its instances,
+# each block shape under each cluster size, in the order of csrc/fps.cu
+# FPS_CLUSTER_PLANS.
+CLUSTERS = (2, 4, 8, 16)
+CLUSTER_BLOCKS = ((256, 16), (512, 16), (1024, 16))
+CLUSTER_PLANS = tuple((t, s, c) for t, s in CLUSTER_BLOCKS for c in CLUSTERS)
 
 
 class BlockPlan(NamedTuple):
@@ -88,6 +102,60 @@ def _block_plan(P: int, D: int) -> BlockPlan:
 def block_plan_name(plan: BlockPlan) -> str:
     return (f"block t{plan.threads}/s{plan.slots} "
             f"{'smem' if plan.smem_bytes else 'registers'}")
+
+
+class ClusterPlan(NamedTuple):
+    """One launch of ``csrc/fps.cu``'s block kernel with a thread-block
+    cluster per cloud (``_cluster_plan``)."""
+
+    cluster: int     # blocks a cloud
+    threads: int     # a block
+    slots: int       # points a thread holds: threads * slots >= slice
+    slice: int       # points of the largest cloud a block owns
+    waves: int       # clusters in turn at one block an SM: ceil(N / clusters the card so holds)
+
+
+def _cluster_plan(N: int, P: int, D: int, active: dict) -> ClusterPlan:
+    """The cluster launch for N clouds of up to P points at D=3, where
+    ``active`` maps each instance (threads, slots, cluster) of
+    ``CLUSTER_PLANS`` to the clusters the card holds at once (0: none).
+
+    For each cluster size C of ``CLUSTERS`` a block owns slice =
+    ceil(P / C) points under the first of ``CLUSTER_BLOCKS`` that holds
+    them, so the coordinates sit in registers up to 8192 points and in
+    shared memory up to 16384 (the kernel passes over the ceil(slice /
+    threads) slots a slice fills). Of the sizes the card runs, those that
+    run the N clouds in the fewest waves at one block an SM remain (the
+    clusters of 1,024-thread blocks the card holds at once: two smaller
+    blocks on one SM share its issue), and of them the largest: a round
+    costs about the same at every size but for the pass over a slice, which
+    shrinks with it (``tune_fps.py --cluster``, PERF.md)."""
+    if D != 3:
+        raise ValueError(f"the FPS cluster path takes D=3 (got D={D})")
+    fits = []
+    for c in CLUSTERS:
+        slice_ = -(-P // c)
+        plan = next(((t, s) for t, s in CLUSTER_BLOCKS if t * s >= slice_), None)
+        held = active.get((*plan, c), 0) if plan else 0
+        if held > 0:
+            spread = min(held, active.get((*CLUSTER_BLOCKS[-1], c), 0)) or held
+            fits.append((c, *plan, slice_, -(-N // spread)))
+    if not fits:
+        raise ValueError(f"the FPS cluster path takes clouds of up to "
+                         f"{_cluster_cap(active)} points on this card (got {P})")
+    least = min(f[4] for f in fits)
+    return ClusterPlan(*[f for f in fits if f[4] == least][-1])
+
+
+def _cluster_cap(active: dict) -> int:
+    """The most points a cloud may have on the cluster path: the largest
+    cluster the card runs of the largest slice."""
+    return max((t * s * c for (t, s, c), n in active.items() if n > 0), default=0)
+
+
+def cluster_plan_name(plan: ClusterPlan) -> str:
+    return (f"cluster {plan.cluster} x t{plan.threads}/s{plan.slots} slice {plan.slice} "
+            f"waves {plan.waves}")
 
 
 class GridPlan(NamedTuple):
@@ -154,7 +222,12 @@ def _lib():
     ]
     lib.fps_grid.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p] * 5
-    for fn in (lib.fps_card, lib.fps_block, lib.fps_grid):
+    lib.fps_cluster.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.fps_cluster_card.argtypes = [ctypes.c_void_p]
+    for fn in (lib.fps_card, lib.fps_block, lib.fps_grid, lib.fps_cluster,
+               lib.fps_cluster_card):
         fn.restype = ctypes.c_int
     return lib
 
@@ -169,6 +242,17 @@ def _card(device: int) -> tuple[int, int]:
         _build.check(_lib().fps_card(ctypes.byref(sms), ctypes.byref(smem)),
                      "fps_card")
     return sms.value, smem.value
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_card(device: int) -> dict:
+    """{(threads, slots, cluster): clusters CUDA device ``device`` holds at
+    once} for each instance of ``CLUSTER_PLANS``
+    (``cudaOccupancyMaxActiveClusters``; 0 where it runs none)."""
+    active = (ctypes.c_int * len(CLUSTER_PLANS))()
+    with torch.cuda.device(device):
+        _build.check(_lib().fps_cluster_card(active), "fps_cluster_card")
+    return dict(zip(CLUSTER_PLANS, active))
 
 
 def _smem_slots(D: int, smem_bytes: int, threads: int) -> int:
@@ -255,6 +339,23 @@ def fps_limits(D: int, device) -> tuple[int, int]:
     return smem // ((D + 1) * 4), sms * _grid_caps(D, smem)[0]
 
 
+def cluster_limit(D: int, device) -> int:
+    """The largest cloud ``fps_clustered`` takes at dimension D on this CUDA
+    device: the largest cluster the card runs (at most 16 blocks) times the
+    largest block slice (16,384 points at D=3); 0 at any other D."""
+    if D != 3:
+        return 0
+    device = torch.device(device)
+    return _cluster_cap(_cluster_card(device.index if device.index is not None
+                                      else torch.cuda.current_device()))
+
+
+def card_cluster_plan(points) -> ClusterPlan:
+    """The plan ``fps_clustered`` launches for these CUDA points."""
+    N, P, D = points.shape
+    return _cluster_plan(N, P, D, _cluster_card(points.device.index))
+
+
 def card_plan(points) -> GridPlan:
     """The plan the grid entry points launch for these CUDA points."""
     N, P, D = points.shape
@@ -264,8 +365,8 @@ def card_plan(points) -> GridPlan:
 def _launch(mode, points, lengths, K, starts, max_K, plan=None):
     """Launch ``csrc/fps.cu`` on CUDA tensors: float32 points, int64
     lengths/K/starts, all contiguous and on one device. The block mode
-    takes ``plan`` or ``_block_plan``'s, the grid modes ``plan`` or
-    ``card_plan``'s."""
+    takes ``plan`` or ``_block_plan``'s, the cluster mode ``plan`` or
+    ``card_cluster_plan``'s, the grid modes ``plan`` or ``card_plan``'s."""
     _check_inputs(points, lengths, K, starts, max_K)
     for t, dtype in ((points, torch.float32), (lengths, torch.int64),
                      (K, torch.int64), (starts, torch.int64)):
@@ -285,6 +386,10 @@ def _launch(mode, points, lengths, K, starts, max_K, plan=None):
             plan = plan or _block_plan(P, D)
             err = lib.fps_block(*args, plan.threads, plan.slots, out.data_ptr(),
                                 stream)
+        elif mode == "cluster":
+            plan = plan or card_cluster_plan(points)
+            err = lib.fps_cluster(*args, plan.threads, plan.slots, plan.cluster,
+                                  out.data_ptr(), stream)
         else:
             plan = plan or card_plan(points)
             if mode == "resident" and plan.tier != "resident":
@@ -326,6 +431,14 @@ def fps_batched(points, lengths, K, starts, max_K: int, *, _plan=None):
     points). ``_plan`` forces a ``BlockPlan`` (``tune_fps.py``,
     ``chip_smoke.py``)."""
     return _dispatch("fps_batched", "block", points, lengths, K, starts, max_K,
+                     _plan)
+
+
+def fps_clustered(points, lengths, K, starts, max_K: int, *, _plan=None):
+    """One thread-block cluster per cloud, every cloud at once (D=3, clouds
+    of up to ``cluster_limit(3, dev)`` points). ``_plan`` forces a
+    ``ClusterPlan`` (``tune_fps.py``, ``chip_smoke.py``)."""
+    return _dispatch("fps_clustered", "cluster", points, lengths, K, starts, max_K,
                      _plan)
 
 

@@ -7,8 +7,8 @@ on ties the argmax keeps the first maximal index. idx is padded with -1 past
 index is 0 unless ``random_start_point``. The selection carries no
 gradient: the sampled points are differentiable through ``masked_gather``.
 
-On CUDA tensors ``route`` sends each batch to one of the three FPS
-kernels of ``kernels/fps.py`` by cloud size; on CPU tensors
+On CUDA tensors ``route`` sends each batch to one of the four FPS
+entry points of ``kernels/fps.py`` by cloud size; on CPU tensors
 every route runs the plain twin.
 """
 
@@ -49,21 +49,34 @@ def _normalize_K(K, N: int, device) -> Tuple[torch.Tensor, int]:
     return host_ints(K_np, device), max_K
 
 
+# The largest single cloud ``route`` sends to the cluster path: past it one
+# cluster of 16 SMs takes longer a round than the grid kernel on every SM
+# (``tune_fps.py --cluster``, PERF.md). Two clouds or more take the cluster
+# path up to ``cluster_limit``: the grid kernel runs them in turn.
+ONE_CLOUD_CLUSTER_MAX = 180_000
+
+
 def route(points: torch.Tensor):
     """The FPS entry point for this batch: one block per cloud up to the
     block cap of ``fps_limits`` ((D + 1) * 4 bytes a point of one block's
-    shared memory), else the whole card with the cloud on chip while it
-    fits there, else the whole card streaming part of it from device memory
-    (the last two run the same grid kernel plan up to the resident cap). On
-    an H100 the block kernel is the faster at every batch shape it takes,
-    one cloud at its limit included (1 x 14,000 points: 0.96-0.99 ms
-    against 1.07-1.16 over two runs; ``tune_fps.py``, PERF.md)."""
-    _, P, D = points.shape
+    shared memory); else, at D=3 up to ``cluster_limit`` (one cloud: up to
+    ``ONE_CLOUD_CLUSTER_MAX``), one thread-block cluster per cloud with
+    every cloud at once; else the whole card with the cloud on chip while
+    it fits there, else the whole card streaming part of it from device
+    memory (the last two run the same grid kernel plan up to the resident
+    cap, cloud after cloud). On an H100 the block kernel is the faster at
+    every batch shape it takes, one cloud at its limit included (1 x 14,000
+    points: 0.96-0.99 ms against 1.07-1.16 over two runs; ``tune_fps.py``,
+    PERF.md), and the cluster path past it wherever it runs
+    (``tune_fps.py --cluster``, PERF.md)."""
+    N, P, D = points.shape
     if not points.is_cuda:
         return _fps.fps_batched  # every entry point runs the plain twin here
     block_max, resident_max = _fps.fps_limits(D, points.device)
     if P <= block_max:
         return _fps.fps_batched
+    if P <= _fps.cluster_limit(D, points.device) and (N > 1 or P <= ONE_CLOUD_CLUSTER_MAX):
+        return _fps.fps_clustered
     if P <= resident_max:
         return _fps.fps_resident
     return _fps.fps_streaming

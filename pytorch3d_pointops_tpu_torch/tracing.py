@@ -16,7 +16,11 @@ inside it), ``point_transformer.down`` each ``TransitionDown``,
 each ``TransitionUp``, and ``point_transformer.head``.
 Counters name what they count: ``sync.<site>`` each read of tensor values
 to the host (whatever the tensor's device, so a CPU run counts what the
-card would), ``launch.<wrapper>`` each launch of a hand-written kernel,
+card would), ``launch.<wrapper>`` each launch of a hand-written kernel
+(``knn_topk_cuda``, ``knn_screen_order_cuda``, ``knn_screen_cuda``,
+``knn_select_cuda``, ``chamfer_nn_cuda``, ``scatter_add_rows``,
+``scatter_add_k1``, ``ball_query_cuda``, ``fps_batched``,
+``fps_clustered``, ``fps_resident``, ``fps_streaming``),
 ``chamfer.rescan_points`` the points whose nearest-neighbour index the
 chamfer kernel finds by its rescan (N x (P1 + P2) a D = 3 launch),
 ``point_transformer.grouped_rows`` the (point, neighbour) rows a Point

@@ -17,6 +17,15 @@ plan (``block_plan``) and times every block plan that holds the cloud
 (``block_plans_ms``, ``fps_batched`` forced to each). A copy of this file
 in an older tree's package times that tree's kernels (without plans).
 ``--block-only`` times only the shapes of the block route.
+
+``--cluster`` prints the table behind ``ops/fps.py`` ``route``'s choice
+between the cluster path and the grid kernel instead: for N in {1, 4, 8}
+clouds of P in {16k, 20k, 80k, 160k, 250k} points, and single clouds of
+180k and 200k and two of 250k (K = 1024), the ms of a
+call and the us of a round (one selection in every cloud: K - 1 a call)
+of ``fps_clustered`` under its plan and under each cluster size forced
+(``cluster_us``), and of ``fps_resident``, each output held equal to
+``fps_plain``'s.
 Exits 1 without a CUDA device.
 """
 
@@ -57,12 +66,58 @@ def _ms(fn, reps=3):
     return statistics.median(times)
 
 
+CLUSTER_SHAPES = tuple((N, P) for P in (16_000, 20_000, 80_000, 160_000, 250_000)
+                       for N in (1, 4, 8)) + ((1, 180_000), (1, 200_000), (2, 250_000))
+
+
+def cluster_table(gen, dev, K=1024):
+    """The cluster path against the grid kernel (``--cluster``): one JSON
+    line a shape."""
+    from .kernels import fps as kf
+
+    lines = []
+    active = kf._cluster_card(dev.index)
+    for N, P in CLUSTER_SHAPES:
+        pts = torch.rand((N, P, 3), generator=gen, device=dev)
+        lengths = torch.full((N,), P, dtype=torch.int64, device=dev)
+        Ks = torch.full((N,), K, dtype=torch.int64, device=dev)
+        starts = torch.zeros((N,), dtype=torch.int64, device=dev)
+        args = (pts, lengths, Ks, starts, K)
+        ref = kf.fps_plain(*args)
+        plan = kf.card_cluster_plan(pts)
+        row = {"N": N, "P": P, "K": K, "plan": kf.cluster_plan_name(plan)}
+        runs = {"grid": (kf.fps_resident, None)}
+        for c in kf.CLUSTERS:
+            sl = -(-P // c)
+            fit = next(((t, s) for t, s in kf.CLUSTER_BLOCKS if t * s >= sl), None)
+            if fit and active[(*fit, c)] > 0:
+                runs[f"c{c}"] = (kf.fps_clustered, plan._replace(
+                    cluster=c, threads=fit[0], slots=fit[1], slice=sl,
+                    waves=-(-N // active[(*fit, c)])))
+        times = {}
+        for name, (fn, forced) in runs.items():
+            if not torch.equal(fn(*args, _plan=forced), ref):
+                raise RuntimeError(f"tune_fps: {name} at {N} x {P} disagrees with fps_plain")
+            times[name] = _ms(lambda: fn(*args, _plan=forced))
+        row["cluster_ms"] = times[f"c{plan.cluster}"]
+        row["grid_ms"] = times["grid"]
+        row["cluster_us_round"] = round(times[f"c{plan.cluster}"] * 1e3 / (K - 1), 4)
+        row["grid_us_round"] = round(times["grid"] * 1e3 / (K - 1), 4)
+        row["cluster_us"] = {k: round(v * 1e3 / (K - 1), 4) for k, v in times.items()
+                             if k != "grid"}
+        lines.append(json.dumps(row))
+        print(lines[-1], flush=True)
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also append the lines here")
     ap.add_argument("--block-only", action="store_true",
                     help="only the shapes fps_batched takes")
+    ap.add_argument("--cluster", action="store_true",
+                    help="only the cluster path against the grid kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tune_fps: no CUDA device", file=sys.stderr)
@@ -75,7 +130,7 @@ def main() -> int:
     lines = []
     checked = set()
     plans = hasattr(kf, "card_plan")
-    for N, P, K in SHAPES:
+    for N, P, K in () if args.cluster else SHAPES:
         if args.block_only and P > block_max:
             continue
         pts = torch.rand((N, P, 3), generator=gen, device=dev)
@@ -114,6 +169,8 @@ def main() -> int:
                     pts, lengths, Ks, starts, K, _plan=alt))
         lines.append(json.dumps(row))
         print(lines[-1], flush=True)
+    if args.cluster:
+        lines = cluster_table(gen, dev)
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,

@@ -206,8 +206,12 @@ def test_edge_shapes_and_errors():
 
 
 # An H100 SXM: 132 SMs, 227 KB of shared memory a block less the 1 KB the
-# FPS kernels keep for static arrays.
+# FPS kernels keep for static arrays, and the clusters of each cluster
+# instance it holds at once (cudaOccupancyMaxActiveClusters on the card).
 _SMS, _SMEM = 132, 232448 - 1024
+_ACTIVE = {(256, 16, 2): 132, (256, 16, 4): 62, (256, 16, 8): 30, (256, 16, 16): 14,
+           (512, 16, 2): 66, (512, 16, 4): 30, (512, 16, 8): 15, (512, 16, 16): 7,
+           (1024, 16, 2): 66, (1024, 16, 4): 30, (1024, 16, 8): 15, (1024, 16, 16): 7}
 
 
 def _caps(D):
@@ -313,22 +317,37 @@ def test_grid_plan_refuses_too_many_blocks():
 def test_route_and_wrappers_launch_or_raise(monkeypatch):
     """On the CPU every route runs the plain twin; a tensor that is neither
     CPU nor CUDA raises, and no CPU tensor reaches a kernel. On the card,
-    ``route`` follows the capacities ``fps_limits`` reports."""
+    ``route`` follows the capacities ``fps_limits`` and ``cluster_limit``
+    report: the cluster path past the block cap at D=3 (one cloud only up to
+    ``ONE_CLOUD_CLUSTER_MAX``), the grid entry points past it."""
     assert ofps.route(torch.zeros((2, 10, 3))) is kf.fps_batched
     limits = {3: (14464, 2433024), 16: (3403, 405504)}
+    cluster_max = {3: 16 * 16384, 16: 0}
     monkeypatch.setattr(kf, "fps_limits", lambda D, device: limits[D])
+    monkeypatch.setattr(kf, "cluster_limit", lambda D, device: cluster_max[D])
+    one = ofps.ONE_CLOUD_CLUSTER_MAX
     for D, (block_max, resident_max) in limits.items():
-        for P, want in ((1, kf.fps_batched), (block_max, kf.fps_batched),
-                        (block_max + 1, kf.fps_resident),
-                        (resident_max, kf.fps_resident),
-                        (resident_max + 1, kf.fps_streaming),
-                        (6_000_000, kf.fps_streaming)):
-            card = types.SimpleNamespace(shape=(2, P, D), is_cuda=True,
-                                         device="cuda:0")
-            assert ofps.route(card) is want, (D, P)
+        grid_from = max(block_max, cluster_max[D]) + 1
+        for N, P, want in ((2, 1, kf.fps_batched), (2, block_max, kf.fps_batched),
+                           (2, block_max + 1, kf.fps_clustered),
+                           (2, 20_000, kf.fps_clustered), (4, 80_000, kf.fps_clustered),
+                           (1, 80_000, kf.fps_clustered), (1, one, kf.fps_clustered),
+                           (1, one + 1, kf.fps_resident),
+                           (2, one + 1, kf.fps_clustered),
+                           (2, cluster_max[D], kf.fps_clustered),
+                           (2, grid_from, kf.fps_resident),
+                           (2, resident_max, kf.fps_resident),
+                           (2, resident_max + 1, kf.fps_streaming),
+                           (2, 6_000_000, kf.fps_streaming)):
+            if D != 3 and want is kf.fps_clustered:
+                want = kf.fps_resident  # no cluster path at D != 3
+            if P > block_max or want is kf.fps_batched:
+                card = types.SimpleNamespace(shape=(N, P, D), is_cuda=True,
+                                             device="cuda:0")
+                assert ofps.route(card) is want, (D, N, P)
     meta = torch.zeros((1, 4, 3), device="meta")
     ml = torch.zeros((1,), dtype=torch.int64, device="meta")
-    for fn in (kf.fps_batched, kf.fps_resident, kf.fps_streaming):
+    for fn in (kf.fps_batched, kf.fps_clustered, kf.fps_resident, kf.fps_streaming):
         with pytest.raises(ValueError):
             fn(meta, ml, ml, ml, 2)
     one = torch.ones((1,), dtype=torch.int64)
@@ -391,11 +410,14 @@ def test_block_plan_config_2_and_past_the_largest():
 @pytest.mark.parametrize("D", [1, 3, 16])
 def test_route_keeps_the_block_cap(D, monkeypatch):
     """``fps_limits`` (unchanged) sends the cap to ``fps_batched`` and the
-    cap + 1 to a grid entry point, on an H100's SM count and shared memory."""
+    cap + 1 to the cluster path at D=3 and to a grid entry point at any
+    other D, on an H100's SM count, shared memory and clusters."""
     monkeypatch.setattr(kf, "_card", lambda index: (_SMS, _SMEM))
+    monkeypatch.setattr(kf, "_cluster_card", lambda index: _ACTIVE)
     cap = _block_cap(D)
     assert kf.fps_limits(D, "cuda:0")[0] == cap
-    for P, want in ((cap, kf.fps_batched), (cap + 1, kf.fps_resident)):
+    above = kf.fps_clustered if D == 3 else kf.fps_resident
+    for P, want in ((cap, kf.fps_batched), (cap + 1, above)):
         card = types.SimpleNamespace(shape=(4, P, D), is_cuda=True, device="cuda:0")
         assert ofps.route(card) is want, (D, P)
 
@@ -414,3 +436,166 @@ def test_fps_batched_plan_runs_the_plain_twin_on_cpu(D):
     ml = torch.zeros((1,), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
         kf.fps_batched(meta, ml, ml, ml, 2, _plan=kf._block_plan(4, D))
+
+
+# ---- the cluster path: one thread-block cluster per cloud ------------------
+
+
+def _check_cluster_plan(N, P, lengths, plan, active):
+    """The plan's instance runs on the card (and within the clusters it is
+    given); its blocks' slices of every cloud (ragged lengths up to P) tile
+    [0, L) in order, each within a block's capacity; within a slice, slot
+    s of thread t is point s * threads + t, so the slots a slice fills
+    visit each of its points once; ``waves`` counts the clusters in turn."""
+    assert plan.cluster in kf.CLUSTERS
+    assert (plan.threads, plan.slots) in kf.CLUSTER_BLOCKS
+    assert active[(plan.threads, plan.slots, plan.cluster)] > 0
+    assert plan.slice == -(-P // plan.cluster) <= plan.threads * plan.slots
+    spread = min(active[(plan.threads, plan.slots, plan.cluster)],
+                 active.get((1024, 16, plan.cluster), 0)) or active[
+                     (plan.threads, plan.slots, plan.cluster)]
+    assert plan.waves == -(-N // spread)
+    for L in lengths:
+        sl = -(-L // plan.cluster) if L else 0
+        seen = np.zeros(L, np.int64)
+        for r in range(plan.cluster):
+            p0 = min(r * sl, L)
+            cnt = min(p0 + sl, L) - p0
+            assert 0 <= cnt <= plan.slice
+            slots = -(-cnt // plan.threads)
+            assert slots <= plan.slots
+            q = np.arange(slots)[:, None] * plan.threads + np.arange(plan.threads)[None, :]
+            assert (np.diff(q, axis=0) > 0).all()
+            q = q[q < cnt]
+            np.add.at(seen, p0 + q, 1)
+        assert (seen == 1).all(), L
+
+
+_SMALL_CARD = {k: (v if k[2] <= 4 else 0) for k, v in _ACTIVE.items()}
+
+
+@pytest.mark.parametrize("active", [_ACTIVE, _SMALL_CARD], ids=["h100", "clusters_of_4"])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_cluster_plan_covers_each_point_once(active, edge):
+    """At each capacity edge of each cluster instance (C x threads x 16
+    points, -1/+0/+1), for batches of 1, 4 and 12 clouds with ragged
+    lengths, lengths 0 and 1 among them; past the largest cluster the card
+    runs the plan raises."""
+    cap = kf._cluster_cap(active)
+    for t, s, c in kf.CLUSTER_PLANS:
+        P = c * t * s + edge
+        if not active[(t, s, c)] or P > cap or P < 1:
+            continue
+        for N in (1, 4, 12):
+            plan = kf._cluster_plan(N, P, 3, active)
+            _check_cluster_plan(N, P, [P, P - 1, 0, 1, P // 3 + 1, 33][:max(N, 6)],
+                                plan, active)
+    with pytest.raises(ValueError):
+        kf._cluster_plan(4, cap + 1, 3, active)
+    with pytest.raises(ValueError):
+        kf._cluster_plan(4, 20_000, 16, active)
+
+
+def test_cluster_plan_picks_the_size_by_shape():
+    """On an H100: the most blocks a cloud that run every cloud at once at
+    one block an SM; a card that runs no cluster past 4 blocks gets 4."""
+    def pick(N, P, active=_ACTIVE):
+        p = kf._cluster_plan(N, P, 3, active)
+        return p.cluster, p.threads, p.waves
+
+    assert pick(4, 20_000) == (16, 256, 1)     # the cell's level 3: 1,250 a block
+    assert pick(4, 80_000) == (16, 512, 1)     # the cell's level 2: 5,000 a block
+    assert pick(1, 14_465) == (16, 256, 1)
+    assert pick(8, 80_000) == (8, 1024, 1)     # 7 clusters of 16 at once: 8 of 8
+    assert pick(8, 20_000) == (8, 256, 1)      # 16 x 256-thread blocks would share SMs
+    assert pick(40, 20_000) == (2, 1024, 1)
+    assert pick(8, 250_000) == (16, 1024, 2)   # only clusters of 16 hold 15,625 a block
+    assert pick(4, 20_000, _SMALL_CARD) == (4, 512, 1)
+    assert kf._cluster_cap(_SMALL_CARD) == 4 * 16384
+    assert kf._cluster_cap(_ACTIVE) == 16 * 16384
+
+
+def test_cluster_limit_and_wrapper(monkeypatch):
+    """``cluster_limit`` is the largest cluster of the largest slice at
+    D=3, 0 at any other D; ``fps_clustered`` runs the plain twin on CPU
+    tensors whatever plan it is given and raises on any other device."""
+    monkeypatch.setattr(kf, "_cluster_card", lambda index: _ACTIVE)
+    assert kf.cluster_limit(3, "cuda:0") == 262_144
+    assert kf.cluster_limit(1, "cuda:0") == kf.cluster_limit(16, "cuda:0") == 0
+    pts = _points(21, 3, 50, grid=True)
+    lengths, K, starts = np.array([50, 17, 0]), np.array([40, 40, 5]), np.array([3, 16, 0])
+    ref = kf.fps_plain(_t(pts), _t(lengths), _t(K), _t(starts), 40)
+    for plan in (None, kf._cluster_plan(3, 50, 3, _ACTIVE)):
+        out = kf.fps_clustered(_t(pts), _t(lengths), _t(K), _t(starts), 40, _plan=plan)
+        assert torch.equal(out, ref)
+
+
+def _cluster_fps_model(points, lengths, K, starts, max_K, C, threads):
+    """The cluster path's scheme in plain numpy, one cloud at a time: C
+    contiguous slices, slot s of thread t at point s * threads + t of a
+    slice; each round the distances summed axis by axis as ``fps_plain``
+    sums them, each thread's first maximum by a strict compare from -1, its
+    key (float bits of the value) << 32 | (0xFFFFFFFF - index), a warp's
+    record the largest key of its 32 threads, a block's the largest of its
+    warps', the winner the largest of the C blocks' records."""
+    pts = points.numpy()
+    N, P, D = pts.shape
+    out = np.full((N, max_K), -1, np.int64)
+    warps = threads // 32
+    for n in range(N):
+        L = min(max(int(lengths[n]), 0), P)
+        k_n = 0 if L == 0 else min(max(min(int(K[n]), L), 0), max_K)
+        if k_n > 0:
+            out[n, 0] = int(starts[n])
+        if k_n <= 1:
+            continue
+        last = min(max(int(starts[n]), 0), L - 1)
+        sl = -(-L // C)
+        md = torch.full((L,), float("inf"))
+        x = torch.from_numpy(pts[n, :L])
+        for r in range(1, k_n):
+            d2 = x.new_zeros((L,))
+            for d in range(D):
+                diff = x[:, d] - x[last, d]
+                d2 = d2 + diff * diff
+            md = torch.minimum(md, d2)
+            records = np.zeros((C, warps), np.uint64)
+            for rank in range(C):
+                p0 = min(rank * sl, L)
+                cnt = min(p0 + sl, L) - p0
+                slots = -(-cnt // threads)
+                best = np.zeros(threads, np.uint64)
+                for t in range(threads):
+                    bv, fs = -1.0, -1
+                    for s in range(slots):
+                        q = s * threads + t
+                        if q < cnt and md[p0 + q].item() > bv:
+                            bv, fs = md[p0 + q].item(), s
+                    if fs >= 0:
+                        bits = int(np.float32(bv).view(np.uint32))
+                        best[t] = (bits << 32) | (0xFFFFFFFF - (p0 + fs * threads + t))
+                records[rank] = best.reshape(warps, 32).max(axis=1)
+            win = int(records.max(axis=1).max())
+            last = 0xFFFFFFFF - (win & 0xFFFFFFFF)
+            out[n, r] = last
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("C", [2, 4, 16])
+@pytest.mark.parametrize("kind", ["normal", "duplicates"])
+def test_cluster_model_equals_plain_twin(C, kind):
+    """The cluster scheme, modelled plainly, bit for bit against
+    ``fps_plain``: ragged lengths (0, 1, 2, a slice edge), per-cloud K, K
+    above the number of distinct points (duplicates: the first maximum may
+    be a point already selected), explicit starts."""
+    P = 150
+    pts = _points(30 + C, 6, P, grid=kind == "duplicates")
+    lengths = np.array([150, 97, 0, 1, 2, 64 * C + 1 if 64 * C + 1 <= P else 130])
+    K = np.array([40, 97, 5, 3, 2, 30]) if kind == "duplicates" else np.array([25, 12, 5, 3, 2, 30])
+    starts = np.array([0, 96, 0, 0, 1, 5])
+    args = (_t(pts), _t(lengths), _t(K), _t(starts), int(K.max()))
+    want = kf.fps_plain(*args)
+    got = _cluster_fps_model(*args, C=C, threads=64)
+    assert torch.equal(got, want)
+    if kind == "duplicates":  # 27 distinct points: rounds past them pick selected ones
+        assert len(set(want[1].tolist())) < 97

@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
     python3 chip_smoke.py [--seed 0]
 
 Phase 1 builds the CUDA kernels from ``pytorch3d_pointops_tpu_torch/csrc``
-(five sources, one ``nvcc`` each, in parallel) into ``build/``, prints the
+(six sources, one ``nvcc`` each, in parallel) into ``build/``, prints the
 registers and spills of every KNN, chamfer NN, FPS and ball query kernel
 instance (and fails if one at D=3 spills), and prints the card's name and
 power limit.
@@ -92,6 +92,23 @@ prints its peak memory and its step time. Two steps are bit-equal, and
 so is the step through the plain twins on the card with the scatter's twin
 on CPU copies: the plan's indices and distances, the logits, the loss and
 every gradient.
+
+Phase 3d (``ptv2_phases``) holds the segment kernels of ``csrc/segment.cu``
+at the Point Transformer V2 cell's shapes (the model at published widths on
+three scans of 100,000, 100,000 and 76,480 points made by the cell's recipe:
+rooms sampled at 2,500 points a square metre, grid-sampled at 2 cm and
+cropped around a seeded point) bit-equal to their twins on CPU copies at
+each of the plan's four poolings (the voxel keys and their flag, the bounds
+and counts, the coordinates' sums and means, the features' maximum with
+ties and its rows, the maximum's backward) and the whole ``grid_pool`` to
+its CPU run; then drives the model's training step (plan, forward with drop
+path masks, cross-entropy, backward) with its launch counts (each segment
+kernel 4 times, 21 scatters, one KNN launch a level), the level sizes
+within the cell's ranges (``PT2_LEVELS``), its four counted reads (``sync.grid_pool.counts``) against the
+sync debug mode's warnings (the same four, no other), its peak memory and
+step time; two steps bit-equal, and the step bit-equal to the plain path
+(the KNN's twin on the card, the scatter's and the segment kernels' twins
+on CPU copies): plan, logits, loss and every gradient.
 
 Phase 4 holds the KNN kernel's query sorting (``sort_queries``) bit-equal
 to the unsorted kernel in both norms at the north star (K=16, 100), config
@@ -1835,6 +1852,26 @@ def phase10(wrappers, dev):
 PT_LENGTHS = [80000, 80000, 74213, 61857]
 
 
+def room_faces(rng):
+    """A room's faces: a box of 4-10 x 4-10 x 2.5-3.5 m and 8-16 boxes of
+    0.3-2 m a side standing in it. Returns each face's corner, its two
+    edges (F, 3) and its area (F,), six faces a box (the room's first; face
+    k of a box lies across axis k // 2, on its far side where k is odd),
+    and the number of boxes."""
+    eye = np.eye(3)
+    size = rng.uniform([4.0, 4.0, 2.5], [10.0, 10.0, 3.5])
+    B = int(rng.integers(8, 17))
+    ext = np.minimum(rng.uniform(0.3, 2.0, size=(B, 3)), size)
+    corner = rng.uniform(size=(B, 3)) * (size - ext)
+    corner[:, 2] = 0.0
+    faces = [(c + side * e[a] * eye[a], e[(a + 1) % 3] * eye[(a + 1) % 3],
+              e[(a + 2) % 3] * eye[(a + 2) % 3])
+             for c, e in zip(np.vstack([np.zeros(3), corner]), np.vstack([size, ext]))
+             for a in range(3) for side in (0.0, 1.0)]
+    o, u, v = (np.array(t) for t in zip(*faces))
+    return o, u, v, np.linalg.norm(u, axis=1) * np.linalg.norm(v, axis=1), B
+
+
 def room_clouds(rng, lengths, P):
     """Rooms as the Point Transformer cell's traffic makes them: points on
     the six faces of a box of 4-10 x 4-10 x 2.5-3.5 m and of 8-16 boxes of
@@ -1845,19 +1882,9 @@ def room_clouds(rng, lengths, P):
     every valid point, packed."""
     N = len(lengths)
     xyz, rgb = np.zeros((N, P, 3), np.float32), np.zeros((N, P, 3), np.float32)
-    labels, eye = [], np.eye(3)
+    labels = []
     for n, L in enumerate(lengths):
-        size = rng.uniform([4.0, 4.0, 2.5], [10.0, 10.0, 3.5])
-        B = int(rng.integers(8, 17))
-        ext = np.minimum(rng.uniform(0.3, 2.0, size=(B, 3)), size)
-        corner = rng.uniform(size=(B, 3)) * (size - ext)
-        corner[:, 2] = 0.0
-        faces = [(c + side * e[a] * eye[a], e[(a + 1) % 3] * eye[(a + 1) % 3],
-                  e[(a + 2) % 3] * eye[(a + 2) % 3])
-                 for c, e in zip(np.vstack([np.zeros(3), corner]), np.vstack([size, ext]))
-                 for a in range(3) for side in (0.0, 1.0)]
-        o, u, v = (np.array(t) for t in zip(*faces))
-        area = np.linalg.norm(u, axis=1) * np.linalg.norm(v, axis=1)
+        o, u, v, area, B = room_faces(rng)
         f = rng.choice(len(area), size=L, p=area / area.sum())
         a, b = rng.uniform(size=(2, L, 1))
         pts = o[f] + a * u[f] + b * v[f] + rng.normal(scale=0.01, size=(L, 3))
@@ -2053,6 +2080,257 @@ def phase3c(model, xyz, rgb, labels, lengths, plain_path):
           f"loss and all {len(grads)} gradients bit-equal; two steps bit-equal")
 
 
+PT2_LENGTHS = [100000, 100000, 76480]
+SEGMENT_WRAPPERS = ("segment_keys", "segment_bounds", "segment_sum", "segment_max",
+                    "segment_max_backward")
+# Each pooling level's points over the batch in the cell (levels 1-4): the
+# cell's and this script's scans give about 47-58k, 9-11k, 1.8-2.4k and
+# 400-580 over their seeds; these ranges hold them with room.
+PT2_LEVELS = ((40000, 65000), (7500, 13000), (1500, 3000), (300, 750))
+
+
+def ptv2_scene(rng, L):
+    """One scan as the Point Transformer V2 cell's traffic makes it: a room
+    (``room_faces``) sampled at 2,500 points a square metre of surface in
+    proportion to area, jittered by 1 cm, shifted to a least coordinate of
+    0, grid-sampled at 2 cm (the first point of each cell in a seeded
+    order), cropped to the ``L`` points nearest a seeded one of them,
+    nearest first, and shifted again. Returns xyz (L, 3), the face's normal
+    (L, 3), and the surface of each point (room face or box)."""
+    o, u, v, area, _ = room_faces(rng)
+    count = int(round(area.sum() * 2500))
+    f = rng.choice(len(area), size=count, p=area / area.sum())
+    a, b = rng.uniform(size=(2, count, 1))
+    xyz = o[f] + a * u[f] + b * v[f] + rng.normal(scale=0.01, size=(count, 3))
+    xyz -= xyz.min(0)
+    cell = (xyz / 0.02).astype(np.int64)
+    perm = rng.permutation(count)
+    key = ((cell[perm, 2] << 20) + cell[perm, 1] << 20) + cell[perm, 0]
+    order = np.argsort(key, kind="stable")
+    first = np.ones(count, bool)
+    first[1:] = key[order[1:]] != key[order[:-1]]
+    keep = perm[order[first]]
+    require(keep.size >= L, f"a scan keeps {keep.size} points after grid sampling, not {L}")
+    centre = xyz[keep[rng.integers(keep.size)]]
+    keep = keep[np.argsort(((xyz[keep] - centre) ** 2).sum(1), kind="stable")[:L]]
+    normal = np.eye(3)[(f[keep] % 6) // 2] * ((f[keep] % 6) % 2 * 2 - 1)[:, None]
+    surface = np.where(f[keep] < 6, f[keep], 6 + (f[keep] - 6) // 6)
+    return xyz[keep] - xyz[keep].min(0), normal, surface
+
+
+def ptv2_inputs(rng, dev):
+    """The Point Transformer V2 cell's inputs: three scans (``ptv2_scene``)
+    of 100,000, 100,000 and 76,480 points, padded; features rgb in [-1, 1)
+    and the normals; a label in [0, 20) a surface."""
+    P, N = max(PT2_LENGTHS), len(PT2_LENGTHS)
+    xyz, feats, labels = np.zeros((N, P, 3)), np.zeros((N, P, 6)), []
+    for n, L in enumerate(PT2_LENGTHS):
+        xyz[n, :L], feats[n, :L, 3:], surface = ptv2_scene(rng, L)
+        feats[n, :L, :3] = rng.uniform(-1.0, 1.0, size=(L, 3))
+        labels.append(rng.integers(0, 20, size=surface.max() + 1)[surface])
+    return (torch.from_numpy(xyz.astype(np.float32)).to(dev),
+            torch.from_numpy(feats.astype(np.float32)).to(dev),
+            torch.from_numpy(np.concatenate(labels)).to(dev))
+
+
+def _on_cpu(fn, writes=()):
+    """``fn`` on CPU copies of its tensor arguments (its plain twins), the
+    results moved back, and the arguments it writes into (positions
+    ``writes``) copied back."""
+    def call(*args, **kwargs):
+        dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        out = fn(*cpu, **kwargs)
+        for k in writes:
+            args[k].copy_(cpu[k])
+        if isinstance(out, tuple):
+            return tuple(o.to(dev) for o in out)
+        return out.to(dev)
+    return call
+
+
+def ptv2_kernels(model, xyz, lengths):
+    """The segment kernels (``csrc/segment.cu``) at the Point Transformer V2
+    cell's shapes: the model's plan of clouds ``xyz``, then at each of its
+    four poolings every segment kernel on the pooling's own inputs, and
+    features of the pooled width, bit-equal to its twin on CPU copies (the
+    voxel keys and their flag, the bounds and counts, the means and sums,
+    the maximum and its rows, the maximum's backward); the whole
+    ``grid_pool`` op bit-equal to its CPU run."""
+    from pytorch3d_pointops_tpu_torch.kernels import segment as ksg
+    from pytorch3d_pointops_tpu_torch.ops import grid_pool
+
+    plan = model.plan(xyz, lengths)
+    lines = []
+    for i, level in enumerate(plan[:-1]):
+        pos, lens, pool = level.pos, level.lengths, level.pool
+        N, T = len(lens), pos.shape[0]
+        dev = pos.device
+        firsts = [sum(lens[:n]) for n in range(N + 1)]
+        bounds = torch.tensor(firsts, device=dev)
+        start = torch.stack([pos[a:b].amin(0) for a, b in zip(firsts, firsts[1:])])
+        grid = model.grid_sizes[i]
+        flag = torch.zeros(1, dtype=torch.int64, device=dev)
+        keys = ksg.segment_keys(pos, bounds[:-1], start, grid, flag)
+        want, bad = ksg.segment_keys_plain(pos.cpu(), bounds[:-1].cpu(), start.cpu(), grid)
+        require(torch.equal(keys.cpu(), want) and int(flag) == bad == 0,
+                f"ptv2 level {i} segment_keys")
+        keys, order = torch.sort(keys, stable=True)
+        heads = torch.ones_like(keys)
+        heads[1:] = keys[1:] != keys[:-1]
+        ids = torch.cumsum(heads, 0)
+        counts = torch.zeros(N, dtype=torch.int64, device=dev)
+        offsets, cluster = ksg.segment_bounds(ids, order, bounds[1:], T + 1, counts)
+        M = int(counts[-1])
+        w_off, w_cluster, w_counts = ksg.segment_bounds_plain(ids.cpu(), order.cpu(),
+                                                             bounds[1:].cpu(), T + 1)
+        require(torch.equal(offsets[:M + 1].cpu(), w_off[:M + 1])
+                and torch.equal(cluster.cpu(), w_cluster) and torch.equal(counts.cpu(), w_counts),
+                f"ptv2 level {i} segment_bounds")
+        offsets = offsets[:M + 1]
+        for mean in (True, False):
+            got = ksg.segment_sum(pos, order, offsets, mean)
+            require(torch.equal(got.cpu(), ksg.segment_sum_plain(pos.cpu(), order.cpu(),
+                                                                 offsets.cpu(), mean)),
+                    f"ptv2 level {i} segment_sum mean={mean}")
+        C = model.enc_stages[i].down.fc.out_features
+        x = torch.randn((T, C), device=dev)
+        x[1::7] = x[0::7][:x[1::7].shape[0]]  # ties within clusters
+        out, arg = ksg.segment_max(x, order, offsets)
+        w_out, w_arg = ksg.segment_max_plain(x.cpu(), order.cpu(), offsets.cpu())
+        require(torch.equal(out.cpu(), w_out) and torch.equal(arg.cpu(), w_arg),
+                f"ptv2 level {i} segment_max")
+        g = torch.randn((M, C), device=dev)
+        require(torch.equal(ksg.segment_max_backward(g, arg, cluster).cpu(),
+                            ksg.segment_max_backward_plain(g.cpu(), arg.cpu(), cluster.cpu())),
+                f"ptv2 level {i} segment_max_backward")
+        cpu = grid_pool(pos.cpu(), lens, grid)
+        require(cpu.lengths == pool.lengths
+                and all(torch.equal(a.cpu(), b) for a, b in zip(pool[:1] + pool[2:],
+                                                                cpu[:1] + cpu[2:])),
+                f"ptv2 level {i} grid_pool on the card against the CPU")
+        lines.append(f"{T} -> {M} ({lens} -> {pool.lengths}) x {C}")
+    print(f"  point transformer v2 segment kernels, bit-equal to their twins: {'; '.join(lines)}")
+
+
+def phase3d(model, xyz, feats, labels, lengths):
+    """The Point Transformer V2's training step (plan, forward with the
+    model's drop path masks, loss, backward; no optimiser) as a main path
+    with its launch counts and its four counted host reads (the sync debug
+    mode warns of those alone), two steps bit-equal, and the step against
+    the plain path on the card (the KNN's twin) with the scatter's and the
+    segment kernels' twins on CPU copies: the plan, logits, loss and every
+    gradient bit-equal."""
+    import warnings
+
+    import torch.nn.functional as F
+
+    from pytorch3d_pointops_tpu_torch import tracing
+    from pytorch3d_pointops_tpu_torch.kernels import knn as kk
+    from pytorch3d_pointops_tpu_torch.kernels import scatter as ks
+    from pytorch3d_pointops_tpu_torch.kernels import segment as ksg
+
+    plan0 = model.plan(xyz, lengths)
+    masks = model.drop_masks(plan0, torch.Generator(device=xyz.device).manual_seed(5))
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        plan = model.plan(xyz, lengths)
+        logits = model(xyz, feats, lengths, plan, masks)
+        loss = F.cross_entropy(logits, labels)
+        loss.backward()
+        return plan, logits, loss, {n: p.grad for n, p in model.named_parameters()}
+
+    counters = ("knn_topk_cuda", "scatter_add_rows") + SEGMENT_WRAPPERS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    # -- the Point Transformer V2 main path: nothing but what a user would call --
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            plan, logits, loss, grads = step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    launches = launch_counts(counters)
+    # -- end of the Point Transformer V2 main path --
+    syncs = tracing.counts("sync.")
+    warned = [str(w.message).splitlines()[0] for w in caught
+              if "called a synchronizing CUDA operation" in str(w.message)]
+    peak = torch.cuda.max_memory_allocated()
+    pools = len(plan) - 1
+    blocks = sum(len(s.blocks.blocks) for s in (model.patch_embed, *model.enc_stages,
+                                                *model.dec_stages))
+    want = {**{w: pools for w in SEGMENT_WRAPPERS}, "scatter_add_rows": blocks + pools}
+    print(f"phase 3d: point transformer v2 {lengths}, levels "
+          f"{[sum(level.lengths) for level in plan]}: launches {json.dumps(launches)}; host "
+          f"syncs {syncs}, sync debug warnings {len(warned)}; peak {peak / 2**30:.2f} GiB")
+    require({k: launches[k] for k in want} == want,
+            f"point transformer v2 launches {launches}, not {want}")
+    require(launches["knn_topk_cuda"] == len(plan),
+            f"point transformer v2: {launches['knn_topk_cuda']} KNN launches, not one a level")
+    sizes = [sum(level.lengths) for level in plan[1:]]
+    require(all(lo <= m <= hi for m, (lo, hi) in zip(sizes, PT2_LEVELS, strict=True)),
+            f"point transformer v2 levels 1-4 {sizes}: not the cell's {PT2_LEVELS}")
+    require(syncs == {"sync.grid_pool.counts": pools} and len(warned) == pools,
+            f"point transformer v2 host reads {syncs}, warnings {warned}")
+    step_ms = wall_ms(step, reps=3)
+    print(f"  point transformer v2 step (plan, forward, loss, backward) median {step_ms:.3f} "
+          f"ms; loss {loss.item():.6g}")
+    again = step()
+    require(torch.equal(again[1], logits)
+            and all(torch.equal(again[3][n], g) for n, g in grads.items()),
+            "point transformer v2 step not bit-equal run to run")
+
+    def cpu_scatter(idx, contrib, P2):
+        return ks.scatter_add_plain(idx.cpu(), contrib.cpu(), P2).to(contrib.device)
+
+    saved = {name: getattr(ksg, name) for name in SEGMENT_WRAPPERS}
+    knn, scatter = kk.knn_topk, ks.scatter_add_rows
+    try:
+        kk.knn_topk, ks.scatter_add_rows = kk.knn_topk_plain, cpu_scatter
+        for name, fn in saved.items():  # the keys' flag and the bounds' counts are written
+            setattr(ksg, name, _on_cpu(fn, (4,) if name in ("segment_keys", "segment_bounds")
+                                        else ()))
+        p_plan, p_logits, p_loss, p_grads = step()
+    finally:
+        kk.knn_topk, ks.scatter_add_rows = knn, scatter
+        for name, fn in saved.items():
+            setattr(ksg, name, fn)
+    for i, (a, b) in enumerate(zip(plan, p_plan, strict=True)):
+        same = a.lengths == b.lengths and torch.equal(a.pos, b.pos) and all(
+            torch.equal(a.neighbours[k][j], b.neighbours[k][j]) for k in a.neighbours
+            for j in (0, 1))
+        if a.pool is not None:
+            same = same and a.pool.lengths == b.pool.lengths and all(
+                torch.equal(x, y) for x, y in zip(a.pool[:1] + a.pool[2:],
+                                                  b.pool[:1] + b.pool[2:]))
+        require(same, f"point transformer v2 level {i}: the plan differs from the plain path")
+    require(torch.equal(logits, p_logits) and torch.equal(loss, p_loss),
+            "point transformer v2 logits or loss differ from the plain path")
+    differ = [n for n, g in grads.items() if not torch.equal(g, p_grads[n])]
+    require(not differ, f"point transformer v2 gradients differ from the plain path: {differ}")
+    print("  point transformer v2 vs the plain path (scatter and segment kernels on CPU "
+          f"copies): plan, logits, loss and all {len(grads)} gradients bit-equal; two steps "
+          "bit-equal")
+    return {"step_ms": step_ms, "peak_bytes": peak, "launches": launches}
+
+
+def ptv2_phases(seed: int, dev) -> None:
+    """``ptv2_kernels`` and ``phase3d`` on the model at published widths
+    (seeded weights, training mode) and the cell's shapes, with their own
+    generator, so that the other phases' inputs do not move."""
+    from pytorch3d_pointops_tpu_torch.models import PointTransformerV2Seg
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = PointTransformerV2Seg().to(dev).train()
+    xyz, feats, labels = ptv2_inputs(np.random.default_rng(seed + 3), dev)
+    ptv2_kernels(model, xyz, PT2_LENGTHS)
+    phase3d(model, xyz, feats, labels, PT2_LENGTHS)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2169,7 +2447,6 @@ def main() -> int:
         require(len(cham_inst) == 4 and not spilled,
                 f"nn_bidir_kernel instances {sorted(cham_inst)}; D=3 spills: {spilled}")
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {gpu_line()}")
-
     stats = {k: {"err": 0.0} for k in ("knn", "chamfer", "rows", "k1", "ball",
                                        "fps_batched", "fps_resident",
                                        "fps_streaming")}
@@ -2840,6 +3117,10 @@ def main() -> int:
     # ---------------- phase 3c: the Point Transformer's step ----------------
     phase3c(pt_model, pt_xyz, pt_rgb, pt_labels, PT_LENGTHS, plain_path)
     del pt_model, pt_xyz, pt_rgb, pt_labels
+
+    # ---------------- phase 3d: the Point Transformer V2's kernels and step ----------------
+    ptv2_phases(args.seed, dev)
+    torch.cuda.empty_cache()
 
     # ---------------- phase 4: Morton sorting, config 4, the last ops ----------------
     cases = phase4(args, T, ns_p1, ns_p2, pc1, pc2, tie1, tie2, knn_step, plain_path,

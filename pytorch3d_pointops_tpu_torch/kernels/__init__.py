@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels (``csrc/*.cu``), each beside its plain
 PyTorch twin: KNN top-K, bidirectional chamfer NN, the deterministic
-scatter, ball query and farthest point sampling. A wrapper launches its
-kernel on CUDA tensors and counts each launch in ``tracing``'s
-``launch.<wrapper>`` counter; on CPU tensors it runs the twin."""
+scatter, ball query, farthest point sampling and the segment reductions
+of grid pooling. A wrapper launches its kernel on CUDA tensors and counts
+each launch in ``tracing``'s ``launch.<wrapper>`` counter; on CPU tensors
+it runs the twin."""
 
 from .ball_query import ball_query_cuda, ball_query_plain, ball_query_points
 from .chamfer import chamfer_nn_bidirectional, chamfer_nn_cuda, chamfer_nn_plain

@@ -13,18 +13,33 @@ and those of the Point Transformer (``models/point_transformer.py``):
 ``point_transformer.plan`` (FPS and the KNN of every level, their op spans
 inside it), ``point_transformer.down`` each ``TransitionDown``,
 ``point_transformer.attn`` each attention layer, ``point_transformer.up``
-each ``TransitionUp``, and ``point_transformer.head``.
+each ``TransitionUp``, and ``point_transformer.head``, and those of the
+Point Transformer V2 (``models/point_transformer_v2.py``):
+``point_transformer_v2.plan`` (the grid pooling of every level and its KNN,
+their op spans inside it), ``point_transformer_v2.pool`` each grid pooling
+of features, ``point_transformer_v2.attn`` each grouped vector attention,
+``point_transformer_v2.unpool`` each unpooling, and
+``point_transformer_v2.head``; the grid pooling op's ``grid_pool`` (the
+coordinates' clusters) and ``grid_pool_max`` (the features' maximum), and
+its backward's ``GridPool.bwd``.
 Counters name what they count: ``sync.<site>`` each read of tensor values
 to the host (whatever the tensor's device, so a CPU run counts what the
-card would), ``launch.<wrapper>`` each launch of a hand-written kernel
+card would; ``sync.grid_pool.counts`` a pooling's clusters by cloud, one
+read a pooling), ``launch.<wrapper>`` each launch of a hand-written kernel
 (``knn_topk_cuda``, ``knn_screen_order_cuda``, ``knn_screen_cuda``,
 ``knn_select_cuda``, ``chamfer_nn_cuda``, ``scatter_add_rows``,
 ``scatter_add_k1``, ``ball_query_cuda``, ``fps_batched``,
-``fps_clustered``, ``fps_resident``, ``fps_streaming``),
+``fps_clustered``, ``fps_resident``, ``fps_streaming``, ``segment_keys``,
+``segment_bounds``, ``segment_sum``, ``segment_max``,
+``segment_max_backward``),
 ``chamfer.rescan_points`` the points whose nearest-neighbour index the
 chamfer kernel finds by its rescan (N x (P1 + P2) a D = 3 launch),
 ``point_transformer.grouped_rows`` the (point, neighbour) rows a Point
-Transformer forward gathers (from the host lengths alone).
+Transformer forward gathers (from the host lengths alone),
+``point_transformer_v2.grouped_rows`` the rows a Point Transformer V2
+forward gathers (each attention's (point, neighbour) rows and each
+unpooling's points, from host lengths), and ``grid_pool.clusters`` the
+clusters a pooling makes (from the counts it has read, no further read).
 
 Off by default. ``span(name)`` then returns a shared null context after one
 flag read, and ``count(name, n)`` adds to a plain dict under a lock

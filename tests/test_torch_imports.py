@@ -37,12 +37,14 @@ def test_port_imports_no_jax():
         "pytorch3d_pointops_tpu_torch.ops.utils",
         "pytorch3d_pointops_tpu_torch.ops.packed_padded",
         "pytorch3d_pointops_tpu_torch.ops.sample_pdf",
+        "pytorch3d_pointops_tpu_torch.ops.grid_pool",
         "pytorch3d_pointops_tpu_torch.kernels.knn",
         "pytorch3d_pointops_tpu_torch.kernels.spatial_sort",
         "pytorch3d_pointops_tpu_torch.kernels.scatter",
         "pytorch3d_pointops_tpu_torch.kernels.chamfer",
         "pytorch3d_pointops_tpu_torch.kernels.ball_query",
         "pytorch3d_pointops_tpu_torch.kernels.fps",
+        "pytorch3d_pointops_tpu_torch.kernels.segment",
         "pytorch3d_pointops_tpu_torch.parallel",
         "pytorch3d_pointops_tpu_torch.parallel.mesh",
         "pytorch3d_pointops_tpu_torch.parallel.ring",
@@ -54,6 +56,7 @@ def test_port_imports_no_jax():
         "pytorch3d_pointops_tpu_torch.models",
         "pytorch3d_pointops_tpu_torch.models.pointnet2",
         "pytorch3d_pointops_tpu_torch.models.point_transformer",
+        "pytorch3d_pointops_tpu_torch.models.point_transformer_v2",
         "pytorch3d_pointops_tpu_torch.structures.pointclouds",
         "pytorch3d_pointops_tpu_torch.convert",
         "pytorch3d_pointops_tpu_torch._build",
@@ -106,6 +109,7 @@ def test_models_export_both_networks_and_their_modules():
 
     assert set(models.__all__) == {
         "PointNet2ClsSSG", "SetAbstraction", "PointTransformerSeg", "PointTransformerBlock",
-        "PointTransformerLayer", "TransitionDown", "TransitionUp"}
+        "PointTransformerLayer", "TransitionDown", "TransitionUp", "PointTransformerV2Seg",
+        "GroupedVectorAttention", "GridPoolLayer", "UnpoolWithSkip"}
     for name in models.__all__:
         assert isinstance(getattr(models, name), type), name
